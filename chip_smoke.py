@@ -19,12 +19,23 @@ Phases, each printing one JSON line:
      first; no NaN, sane extrema, each kernel launched;
   6. profile: PROFILE_STEPS more steps traced with torch.profiler, for
      launches per step, the device-busy share and device time by kernel;
-  7. agreement: 2 steps on the card and on the CPU at x1.2562, 8 levels,
-     float64, port against port.
+  7. main_path_orient: the same run with config_orient_edges=True (the JAX
+     bench's setting) on the same mesh, with Kernel 2 checked at the shapes
+     the aligned step adds, 10 counted steps and PROFILE_STEPS traced ones;
+  8. agreement: 2 steps on the card and on the CPU at x1.2562, 8 levels,
+     float64, port against port, on the default numbering and (agreement_
+     orient) with config_renumber_mesh and config_orient_edges;
+  9. windowed_study: Kernel 3 (windowed gather-reduce) against its plain
+     version, Kernel 2 and the index_select loop on the RCM-renumbered
+     x1.40962 mesh at Kst = 48 and 168 levels (probes.windowed_study);
+ 10. gather_probe: Kernel 4 (column gather, the probe's A and B) and
+     Kernel 2 (its C) at K=83, C=40962, R=122880, M=10 (probes.gather_probe).
 
-Then a `kernels` line, the nvidia-smi line, and last the `ok` line. Any
-failed check raises, so the script exits non-zero; without a CUDA device it
-exits non-zero before printing any result.
+Every timed phase carries the card's SM clock, its maximum, temperature and
+power draw read before and after it (`smi_before`, `smi_after`). Then a
+`kernels` line, the nvidia-smi line, and last the `ok` line. Any failed
+check raises, so the script exits non-zero; without a CUDA device it exits
+non-zero before printing any result.
 """
 
 import json
@@ -50,39 +61,6 @@ AGREE_REL = 1e-9      # float64 card vs CPU after 2 steps, per field
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of `fn()` over `reps` runs, timed with CUDA
-    events one run at a time."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def step_ms(model, n):
-    """Milliseconds of each of `n` single steps, timed with CUDA events."""
-    import torch
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        model.step(1)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return times
 
 
 def busy_us(events):
@@ -120,16 +98,37 @@ def profile_steps(model, n, torch):
         d[0] += 1
         d[1] += e.time_range.end - e.time_range.start
     device_us = sum(v[1] for v in by_name.values())
+    by_kind = lambda *keys: sum(us for k, (_, us) in by_name.items()
+                                if any(x in k for x in keys)) / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:PROFILE_TOP]
     return dict(
         traced_steps=n, traced_wall_ms=wall_us / 1e3,
         device_busy_share=busy_us(kernels) / wall_us,
         kernel_device_ms_per_step=device_us / 1e3 / n,
         launches_per_step=len(kernels) / n,
+        # index_select and torch.gather: one kernel in recent PyTorch builds
+        gather_ms_per_step=by_kind("scatter_gather", "indexSelect"),
+        cat_ms_per_step=by_kind("CatArray"),
         top_kernels=[{"name": k[:90], "launches_per_step": c / n,
                       "ms_per_step": us / 1e3 / n,
                       "share_of_kernel_time": us / device_us}
                      for k, (c, us) in top])
+
+
+def smi_clocks():
+    """SM clock, its maximum, temperature and power draw, as nvidia-smi
+    prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def timed(fn):
+    """fn()'s result (a dict) with the clocks read before and after it."""
+    before = smi_clocks()
+    res = fn()
+    return dict(res, smi_before=before, smi_after=smi_clocks())
 
 
 def nbytes(*ts):
@@ -173,6 +172,7 @@ def record_step(model):
 
 def check_acoustic(args, torch):
     from mpas_tpu_torch.ops import acoustic_column as ac
+    from mpas_tpu_torch.probes import cuda_ms
     from mpas_tpu_torch.ops.acoustic import ImplicitCoefs
 
     def widen(a):
@@ -214,29 +214,22 @@ def check_acoustic(args, torch):
 
 def check_gather_reduce(calls, torch):
     from mpas_tpu_torch.ops import gather_reduce as gr
-    eps = torch.finfo(torch.float32).eps
+    from mpas_tpu_torch.probes import csr_weights, cuda_ms, roundoff_ratio
     rows = []
     for (Kt, N, R, M, S), hit in calls.items():
         tbl, idx, w = hit["args"]
         out_k = gr.gather_reduce(tbl, idx, w)
         out_p = gr.gather_reduce_plain(tbl, idx, w)
-        # round-off bound of an M-term sum in either order: each result is
-        # within ~(M+1) eps of sum |w g|; allow 4x that
         mag = gr.gather_reduce_plain(tbl.abs(), idx, w.abs())
         torch.cuda.synchronize()
-        err = (out_k - out_p).abs()
-        lim = 4 * (M + 1) * eps * mag + 1e-30
-        ratio = float((err / lim).max())
+        ratio = roundoff_ratio(out_k, out_p, mag, M)
+        err = float((out_k - out_p).abs().max())
         if not bool(torch.isfinite(out_k).all()) or ratio > 1.0:
             raise RuntimeError(f"gather_reduce {(Kt, N, R, M, S)}: max err "
-                               f"{float(err.max())} over its round-off bound")
+                               f"{err} over its round-off bound")
         # the same function as one PyTorch call: a CSR sparse product of the
         # [S*R, N] weight matrix with the table's transpose
-        rows_i = torch.arange(S * R, device=tbl.device).repeat_interleave(M)
-        cols = idx.long().repeat(S, 1).reshape(-1)
-        W = torch.sparse_coo_tensor(torch.stack([rows_i, cols]),
-                                    w.reshape(-1), (S * R, N)).coalesce()
-        W = W.to_sparse_csr()
+        W = csr_weights(idx, w, N)
         tblT = tbl.t().contiguous()
         lib_out = torch.sparse.mm(W, tblT).reshape(S, R, Kt).transpose(1, 2)
         lib_err = float((lib_out - out_p).abs().max()
@@ -245,13 +238,70 @@ def check_gather_reduce(calls, torch):
         b_ms, b_by = bound(nb, 2 * S * Kt * R * M, "float32")
         rows.append(dict(
             Kt=Kt, N=N, R=R, M=M, S=S, calls_per_step=hit["calls"],
-            max_abs_err=float(err.max()), max_err_over_bound=ratio,
+            max_abs_err=err, max_err_over_bound=ratio,
             max_abs_out=float(out_p.abs().max()), library_max_rel_err=lib_err,
             ms=cuda_ms(lambda: gr.gather_reduce(tbl, idx, w)),
             plain_ms=cuda_ms(lambda: gr.gather_reduce_plain(tbl, idx, w)),
             library_ms=cuda_ms(lambda: torch.sparse.mm(W, tblT)),
             bytes=nb, bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def check_summary(summ, what):
+    """No NaN and sane extrema after a full-width run."""
+    if summ["nan_detected"] or not all(map(lambda v: v == v, summ.values())):
+        raise RuntimeError(f"{what}: NaN in the full-width run: {summ}")
+    if not (abs(summ["u_min"]) < 100 and abs(summ["u_max"]) < 100
+            and abs(summ["w_min"]) < 5 and abs(summ["w_max"]) < 5
+            and 150 < summ["theta_min"] and summ["theta_max"] < 2000):
+        raise RuntimeError(f"{what}: extrema out of range: {summ}")
+
+
+def counted_steps(model, torch):
+    """MAIN_STEPS steps with the launch counters of Kernels 1 and 2 set to 0
+    first: the step times, the host CPU time the process spent per step
+    (more host work moves it, a busy host's other tenants do not), the
+    launches, the peak memory and the summary. Fails if either kernel never
+    launched."""
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.probes import step_ms
+    acoustic_column.launches = gather_reduce.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cpu0 = time.process_time()
+    times = step_ms(model, MAIN_STEPS)
+    cpu_ms = (time.process_time() - cpu0) * 1e3 / MAIN_STEPS
+    launches = {"acoustic_column": acoustic_column.launches,
+                "gather_reduce": gather_reduce.launches}
+    if any(v <= 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    return dict(steps=MAIN_STEPS, ms_per_step_median=statistics.median(times),
+                ms_per_step=times, host_cpu_ms_per_step=cpu_ms,
+                launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                summary=model.summarize())
+
+
+def agreement(nl, mesh, what, torch):
+    """2 float64 steps on the card and on the CPU: max relative difference
+    per field, which must stay within AGREE_REL."""
+    from mpas_tpu_torch.dynamics.model import build_model
+    gpu = build_model(nl, mesh, device="cuda")
+    cpu = build_model(nl, mesh, device="cpu")
+    gpu.step(2)
+    cpu.step(2)
+    agree = {}
+    for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
+        a = getattr(gpu.state, n).cpu()
+        b = getattr(cpu.state, n)
+        agree[n] = float((a - b).abs().max() / b.abs().max())
+    emit({"phase": what, "cells": mesh.nCells, "edges": gpu.mesh.nEdges,
+          "levels": nl.config_nvertlevels, "dtype": nl.dtype, "steps": 2,
+          "orient_edges": nl.config_orient_edges,
+          "renumber_mesh": nl.config_renumber_mesh,
+          "max_rel_err": agree, "limit_rel": AGREE_REL})
+    bad = {k: v for k, v in agree.items() if not v <= AGREE_REL}
+    if bad:
+        raise RuntimeError(f"{what}: card and CPU disagree: {bad}")
 
 
 def main():
@@ -261,11 +311,12 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from mpas_tpu_torch import cuda_build
+    from mpas_tpu_torch import cuda_build, probes
     from mpas_tpu_torch.config import Namelist
     from mpas_tpu_torch.dynamics.model import build_model
     from mpas_tpu_torch.mesh.generator import generate_mesh
-    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.mesh.renumber import renumber_mesh
+    from mpas_tpu_torch.ops import take_columns, windowed
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -301,7 +352,7 @@ def main():
     torch.cuda.synchronize()
 
     # 3. Kernel 1
-    k1 = check_acoustic(k1_args, torch)
+    k1 = timed(lambda: check_acoustic(k1_args, torch))
     emit({"phase": "acoustic_column", **k1})
 
     # 4. Kernel 2
@@ -310,60 +361,98 @@ def main():
         emit({"phase": "gather_reduce", **row})
 
     # 5. the main path: 10 full-width steps, counted
-    acoustic_column.launches = 0
-    gather_reduce.launches = 0
-    main_ms = step_ms(model, MAIN_STEPS)
-    launches = {"acoustic_column": acoustic_column.launches,
-                "gather_reduce": gather_reduce.launches}
-    summ = model.summarize()
+    main = timed(lambda: counted_steps(model, torch))
+    launches = main["launches"]
     emit({"phase": "main_path", "cells": model.mesh.nCells,
           "edges": model.mesh.nEdges, "levels": 41, "dtype": "float32",
-          "dt": 300.0, "steps": MAIN_STEPS, "setup_s": setup_s,
-          "setup_s_by_stage": setup,
-          "ms_per_step_median": statistics.median(main_ms),
-          "ms_per_step": main_ms, "launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "summary": summ})
-    if any(v <= 0 for v in launches.values()):
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
-    if summ["nan_detected"] or not all(map(lambda v: v == v, summ.values())):
-        raise RuntimeError(f"NaN in the full-width run: {summ}")
-    if not (abs(summ["u_min"]) < 100 and abs(summ["u_max"]) < 100
-            and abs(summ["w_min"]) < 5 and abs(summ["w_max"]) < 5
-            and 150 < summ["theta_min"] and summ["theta_max"] < 2000):
-        raise RuntimeError(f"extrema out of range: {summ}")
+          "dt": 300.0, "setup_s": setup_s, "setup_s_by_stage": setup, **main})
+    check_summary(main["summary"], "main_path")
 
     # 6. where the time of a full-width step goes
-    emit({"phase": "profile", **profile_steps(model, PROFILE_STEPS, torch)})
+    emit({"phase": "profile",
+          **timed(lambda: profile_steps(model, PROFILE_STEPS, torch))})
+    shapes_seen = set(k2_calls)
     del model, k1_args, k2_calls
     torch.cuda.empty_cache()
 
-    # 7. card against CPU, float64, x1.2562 / 8 levels, 2 steps
+    # 7. the JAX bench's setting: edges aligned to their owner cells
+    t0 = time.perf_counter()
+    nl_o = nl.replace(config_orient_edges=True)
+    model = build_model(nl_o, mesh, device="cuda")
+    torch.cuda.synchronize()
+    setup_o = time.perf_counter() - t0
+    _, calls = record_step(model)
+    new_calls = {k: v for k, v in calls.items() if k not in shapes_seen}
+    for row in check_gather_reduce(new_calls, torch):
+        emit({"phase": "gather_reduce_orient", **row})
+    del calls, new_calls
+    orient = timed(lambda: counted_steps(model, torch))
+    prof = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
+    emit({"phase": "main_path_orient", "cells": model.mesh.nCells,
+          "edges": model.mesh.nEdges, "edges_real": model.mesh.nEdgesReal,
+          "non_owned_slots": model.mesh_arrays.eoc_split.width - 3,
+          "levels": 41, "dtype": "float32", "dt": 300.0, "setup_s": setup_o,
+          "setup_s_by_stage": model.setup_seconds, **orient,
+          "profile": prof})
+    check_summary(orient["summary"], "main_path_orient")
+    del model
+    torch.cuda.empty_cache()
+
+    # 8. card against CPU, float64, x1.2562 / 8 levels, 2 steps
     nl6 = Namelist(config_nvertlevels=8, config_ztop=30000.0, dtype="float64",
                    config_jw_u_perturbation=1.0)
     mesh4 = generate_mesh(levels=4)
-    gpu = build_model(nl6, mesh4, device="cuda")
-    cpu = build_model(nl6, mesh4, device="cpu")
-    gpu.step(2)
-    cpu.step(2)
-    agree = {}
-    for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
-        a = getattr(gpu.state, n).cpu()
-        b = getattr(cpu.state, n)
-        agree[n] = float((a - b).abs().max() / b.abs().max())
-    emit({"phase": "agreement", "cells": mesh4.nCells, "levels": 8,
-          "dtype": "float64", "steps": 2, "max_rel_err": agree,
-          "limit_rel": AGREE_REL})
-    bad = {k: v for k, v in agree.items() if not v <= AGREE_REL}
-    if bad:
-        raise RuntimeError(f"card and CPU disagree: {bad}")
+    agreement(nl6, mesh4, "agreement", torch)
+    agreement(nl6.replace(config_renumber_mesh=True, config_orient_edges=True),
+              mesh4, "agreement_orient", torch)
+
+    # 9. the windowed study on the RCM-renumbered x1.40962 mesh
+    windowed.launches = 0
+    study = timed(lambda: {"rows": probes.windowed_study(
+        renumber_mesh(mesh)[0], Kst=(48, 168))})
+    k3_launches = windowed.launches
+    for row in study["rows"]:
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"],
+                                                 "float32")
+        emit({"phase": "windowed_study", **row, "launches": k3_launches,
+              "smi_before": study["smi_before"],
+              "smi_after": study["smi_after"]})
+        worst = max(row["err_over_bound"], row["gather_reduce_err_over_bound"],
+                    row["err_over_bound_vs_index_select"])
+        if worst > 1.0:
+            raise RuntimeError(f"windowed_study Kst={row['Kst']}: error over "
+                               f"its round-off bound ({worst})")
+    if k3_launches <= 0:
+        raise RuntimeError("windowed_study never launched Kernel 3")
+
+    # 10. the gather probe: Kernel 4 (A, B) and Kernel 2 (C)
+    take_columns.launches = 0
+    probe = timed(probes.gather_probe)
+    k4_launches = take_columns.launches
+    for key in "ABC":
+        row = probe[key]
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"],
+                                                 "float32")
+        emit({"phase": "gather_probe", "probe": key, **row,
+              "smi_before": probe["smi_before"],
+              "smi_after": probe["smi_after"]})
+    if probe["A"]["max_abs_err"] != 0.0 or probe["B"]["max_abs_err"] != 0.0:
+        raise RuntimeError("gather_probe: Kernel 4 differs from index_select")
+    if probe["C"]["err_over_bound"] > 1.0:
+        raise RuntimeError("gather_probe C: error over its round-off bound")
+    if k4_launches <= 0:
+        raise RuntimeError("gather_probe never launched Kernel 4")
+    del probe["outputs"]
 
     big = max(k2, key=lambda r: r["Kt"] * r["R"] * r["M"])
+    k3 = max(study["rows"], key=lambda r: r["Kst"])
+    a = probe["A"]
     kernels = [
         {"name": "acoustic_column_update", "route": "cuda",
          "source": "mpas_tpu_torch/csrc/acoustic_column.cu",
          "replaces": "mpas_tpu/ops/pallas_acoustic.py:34",
          "launches": launches["acoustic_column"],
+         "launches_orient": orient["launches"]["acoustic_column"],
          "max_abs_err": k1["float32"]["max_abs_err"],
          "max_rel_err": k1["float32"]["max_rel_err"],
          "ms": k1["float32"]["ms"], "plain_ms": k1["float32"]["plain_ms"],
@@ -373,13 +462,37 @@ def main():
         {"name": "gather_reduce", "route": "cuda",
          "source": "mpas_tpu_torch/csrc/gather_reduce.cu",
          "replaces": "tools/windowed_kernels.py:160",
+         "also_replaces": ["tools/pallas_gather_probe.py:110"],
          "launches": launches["gather_reduce"],
+         "launches_orient": orient["launches"]["gather_reduce"],
          "max_abs_err": max(r["max_abs_err"] for r in k2),
          "max_err_over_bound": max(r["max_err_over_bound"] for r in k2),
          "ms": big["ms"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
          "library_ms": big["library_ms"],
-         "shape": [big["Kt"], big["N"], big["R"], big["M"], big["S"]]},
+         "shape": [big["Kt"], big["N"], big["R"], big["M"], big["S"]],
+         "probe_c": {k: probe["C"][k] for k in
+                     ("ms", "plain_ms", "bound_ms", "library_ms",
+                      "err_over_bound")}},
+        {"name": "windowed_reduce", "route": "cuda",
+         "source": "mpas_tpu_torch/csrc/windowed_reduce.cu",
+         "replaces": "tools/windowed_study.py:48",
+         "launches": k3_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in study["rows"]),
+         "max_err_over_bound": max(r["err_over_bound"] for r in study["rows"]),
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"],
+         "shape": [k3["Kst"], k3["E"], k3["C"], k3["M"], k3["W"]]},
+        {"name": "take_columns", "route": "cuda",
+         "source": "mpas_tpu_torch/csrc/take_columns.cu",
+         "replaces": "tools/pallas_gather_probe.py:55",
+         "also_replaces": ["tools/pallas_gather_probe.py:82"],
+         "launches": k4_launches,
+         "max_abs_err": max(a["max_abs_err"], probe["B"]["max_abs_err"]),
+         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+         "shape": [a["K"], a["C"], a["R"]]},
     ]
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

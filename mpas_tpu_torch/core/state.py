@@ -11,7 +11,9 @@ Array shape conventions (C=nCells, E=nEdges, V=nVertices, K=nVertLevels):
 Per-slot coefficient tables are slot-major: zb_cell/zb3_cell [M, K+1, C].
 
 Index tables are int32: `torch.index_select` takes them as they are, and the
-gather-reduce kernel (ops/gather_reduce.py) reads them without a copy.
+gather-reduce kernel (ops/gather_reduce.py) reads them without a copy. On an
+ownership-aligned mesh `MeshArrays.eoc_split` holds the split of
+edgesOnCell into owned planes and non-owned slots (`EocSplit`).
 The cell-form operator tables (dirHess, tanWeights, slotOnCell) belong to
 `config_cell_form_ops`, which this package does not implement yet.
 """
@@ -33,6 +35,81 @@ from ..core.vertical import VerticalGrid
 class _Replace:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+class EocSplit:
+    """edgesOnCell of an ownership-aligned mesh, split once on the host:
+    each cell c owns the edges s*C + c (s = 0, 1, 2) and lists at most Mn
+    edges it does not own. Column j of the [C, 3 + Mn] tables is
+
+      j < 3:  the plane-s owned edge, idx = s*C + c (a contiguous read);
+      j >= 3: the (j-3)-th non-owned edge of the row, in slot order
+              (an absent entry points at the row's first edge);
+
+    `sel` is the slot of column j in the original row (0 where absent) and
+    `pres` is 1 where the edge is present, 0 where not. This is
+    mpas_tpu.ops.stencils._eoc_split laid out as one table, in its summation
+    order (planes 0, 1, 2, then the non-owned slots)."""
+
+    def __init__(self, idx, sel, pres):
+        self.idx, self.sel, self.pres = idx, sel, pres
+        self._zb = None
+
+    @classmethod
+    def build(cls, edgesOnCell, edgesOnCell_mask) -> "EocSplit":
+        eoc = edgesOnCell.cpu().numpy().astype(np.int64)
+        mask = edgesOnCell_mask.cpu().numpy() > 0
+        C = eoc.shape[0]
+        cid = np.arange(C)
+        owned = mask & ((eoc % C) == cid[:, None])
+        plane = eoc // C
+        idx, sel, pres = [], [], []
+        for s in range(3):
+            sel_s = owned & (plane == s)
+            p = sel_s.any(axis=1)
+            idx.append(s * C + cid)
+            sel.append(np.where(p, sel_s.argmax(axis=1), 0))
+            pres.append(p)
+        non = mask & ~owned
+        Mn = int(non.sum(axis=1).max())
+        order = np.argsort(~non, axis=1, kind="stable")[:, :Mn]
+        p_no = np.take_along_axis(non, order, axis=1)
+        i_no = np.where(p_no, np.take_along_axis(eoc, order, axis=1),
+                        eoc[:, :1])
+        idx = np.concatenate([np.stack(idx, 1), i_no], axis=1)
+        sel = np.concatenate([np.stack(sel, 1), order], axis=1)
+        pres = np.concatenate([np.stack(pres, 1), p_no], axis=1)
+        dev = edgesOnCell.device
+        return cls(to_index(idx, dev),
+                   torch.from_numpy(np.ascontiguousarray(sel)).to(dev),
+                   torch.from_numpy(pres.astype(np.float64)).to(
+                       dev, edgesOnCell_mask.dtype))
+
+    @property
+    def width(self) -> int:
+        return self.idx.shape[1]
+
+    def weights(self, w):
+        """[..., C, M] weights of edgesOnCell's slots -> [..., C, 3 + Mn]
+        weights of the split's columns, zero where a column is absent."""
+        sel = self.sel.expand(w.shape[:-1] + (self.width,))
+        return torch.gather(w, -1, sel) * self.pres
+
+    def zb_planes(self, zb_cell, zb3_cell, sign):
+        """The slot-major zb_cell/zb3_cell [M, K+1, C] re-indexed to the
+        split's columns, [3 + Mn, K+1, C], and sign [C, M] to [C, 3 + Mn].
+        They are static: built at the first call and kept while the same
+        tensors are passed (the split holds them, so identity is safe)."""
+        hit = self._zb
+        if (hit is None or hit[0] is not zb_cell or hit[1] is not zb3_cell
+                or hit[2] is not sign):
+            J = self.width
+            sel = self.sel.t()[:, None, :].expand(J, zb_cell.shape[1], -1)
+            hit = (zb_cell, zb3_cell, sign,
+                   torch.gather(zb_cell, 0, sel),
+                   torch.gather(zb3_cell, 0, sel), self.weights(sign))
+            self._zb = hit
+        return hit[3:]
 
 
 @dataclasses.dataclass
@@ -92,9 +169,12 @@ class MeshArrays(_Replace):
     fEdge: Any                # [E]
     fVertex: Any              # [V]
 
-    # ownership-aligned edge numbering (mpas_tpu/mesh/orient.py); the port
-    # supports only the default numbering, where this is False
+    # ownership-aligned edge numbering (mesh/orient.py): edge s*C + c is the
+    # s-th edge owned by cell c. `eoc_split` is the split of edgesOnCell
+    # that the aligned `_m` stencils use; it is built here, once, when
+    # owner_aligned is true, and is None otherwise
     owner_aligned: bool = False
+    eoc_split: Any = None
 
     def __post_init__(self):
         # the gather-reduce kernel reads through these tables without a
@@ -107,6 +187,16 @@ class MeshArrays(_Replace):
             if t.numel() and (int(t.min()) < 0 or int(t.max()) >= n):
                 raise ValueError(f"MeshArrays.{name}: entries outside "
                                  f"[0, {n})")
+        if self.owner_aligned and self.eoc_split is None:
+            # the aligned stencils read cell c's owned edges at s*C + c
+            # without looking them up, so a wrong flag would go unseen
+            owner = torch.arange(self.nEdges, device=self.cellsOnEdge.device)
+            if (self.nEdges != 3 * self.nCells or not bool(
+                    (self.cellsOnEdge[:, 0] == owner % self.nCells).all())):
+                raise ValueError("MeshArrays.owner_aligned: the edges are not "
+                                 "numbered s*nCells + owner (mesh/orient.py)")
+            self.eoc_split = EocSplit.build(self.edgesOnCell,
+                                            self.edgesOnCell_mask)
 
     @property
     def nCells(self):

@@ -22,7 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("acoustic_column.cu", "gather_reduce.cu")
+SOURCES = ("acoustic_column.cu", "gather_reduce.cu", "windowed_reduce.cu",
+           "take_columns.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -101,6 +102,11 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"gather_reduce_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
+        fn = getattr(lib, f"take_columns_{suffix}")
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        fn.restype = _I
+    lib.windowed_reduce_f32.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+    lib.windowed_reduce_f32.restype = _I
     lib.mpas_cuda_error_string.argtypes = [_I]
     lib.mpas_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -23,6 +23,8 @@ from ..init import jw as jw_init
 from ..mesh import coefficients as mcoef
 from ..mesh.generator import generate_mesh
 from ..mesh.loader import Mesh
+from ..mesh.orient import orient_edges
+from ..mesh.renumber import renumber_mesh
 from ..ops import diagnostics as diag_ops
 from . import srk3
 
@@ -62,7 +64,7 @@ class Model:
                 srk3.summarize_timestep(self.state, self.mesh_arrays).items()}
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model(device='cuda'): no CUDA device is "
@@ -75,9 +77,13 @@ def build_model(namelist: Optional[Namelist] = None,
                 dtype=None) -> Model:
     """Build all static coefficients, apply the JW initial condition, derive
     the coupled state and close the step function over them. `mesh`
-    defaults to `generate_mesh(levels=6)` (x1.40962)."""
+    defaults to `generate_mesh(levels=6)` (x1.40962). As in mpas_tpu,
+    `config_renumber_mesh` renumbers the mesh (RCM, mesh/renumber.py) and
+    then `config_orient_edges` aligns its edges to their owner cells
+    (mesh/orient.py) unless the mesh given is aligned already; the model's
+    `mesh` is the mesh it runs on."""
     nl = namelist or Namelist()
-    dev = _device(device)
+    dev = resolve_device(device)
     dtype = dtype or _DTYPES[nl.dtype]
     if nl.config_init_case != 2:
         raise NotImplementedError(
@@ -85,10 +91,24 @@ def build_model(namelist: Optional[Namelist] = None,
             "wave (2) is ported")
     srk3.check_namelist(nl)
 
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(stage):
+        nonlocal t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        seconds[stage], t0 = t1 - t0, t1
+
     if mesh is None:
         mesh = generate_mesh(levels=6, sphere_radius=nl.config_sphere_radius)
-    if getattr(mesh, "edges_owner_aligned", False):
-        raise NotImplementedError("ownership-aligned meshes are not ported")
+        lap("generate_mesh")
+    if nl.config_renumber_mesh:
+        mesh, _ = renumber_mesh(mesh)
+        lap("renumber_mesh")
+    if nl.config_orient_edges and not mesh.edges_owner_aligned:
+        mesh, _ = orient_edges(mesh)
+        lap("orient_edges")
     mesh.validate()
     vg = make_vertical_grid(nl.config_nvertlevels, nl.config_ztop,
                             nl.config_vertical_stretch)
@@ -100,15 +120,7 @@ def build_model(namelist: Optional[Namelist] = None,
             f"acoustic CFL {cfl:.2f} > 0.72 (dt={nl.config_dt}, min dx="
             f"{mesh.dcEdge.min()/1e3:.0f} km): reduce config_dt (~6 s/km) or "
             f"raise config_number_of_sub_steps", stacklevel=2)
-
-    seconds, t0 = {}, time.perf_counter()
-
-    def lap(stage):
-        nonlocal t0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        seconds[stage], t0 = t1 - t0, t1
+    lap("validate")
 
     deriv_two = mcoef.compute_deriv_two(mesh)
     lap("deriv_two")

@@ -34,8 +34,6 @@ def check_namelist(nl) -> None:
         "config_cell_form_ops": getattr(nl, "config_cell_form_ops", False),
         "config_apvm_upwinding": getattr(nl, "config_apvm_upwinding", 0.0) != 0.0,
         "config_hollingsworth": getattr(nl, "config_hollingsworth", False),
-        "config_orient_edges": nl.config_orient_edges,
-        "config_renumber_mesh": nl.config_renumber_mesh,
         "config_moisture": nl.config_moisture,
         "config_scalar_advection": nl.config_scalar_advection,
         "config_microphysics": nl.config_microphysics != "off",

@@ -16,8 +16,12 @@ horizontal gather is a dim-1 `index_select` and fields that share an index
 vector stack along dim 0 and gather together.
 
 The `_m` forms take the MeshArrays. On the default edge numbering
-(`owner_aligned` False) they call the plain forms; the ownership-aligned
-numbering (`config_orient_edges`) is not ported yet and raises.
+(`owner_aligned` False) they call the plain forms. On the ownership-aligned
+numbering (`config_orient_edges`, mesh/orient.py: edge s*C + c is the s-th
+edge owned by cell c) the owner side of an edge pair is `owner_tile`, no
+gather, and an edgesOnCell reduction reads each cell's 3 owned edges as
+contiguous planes and gathers only the non-owned slots, in one gather-reduce
+launch on the row-permuted table of `MeshArrays.eoc_split`.
 """
 
 from __future__ import annotations
@@ -66,20 +70,32 @@ def edge_pair(f_c, cellsOnEdge):
             torch.index_select(f_c, 1, cellsOnEdge[:, 1]))
 
 
-def _plain_mesh(mesh):
-    if getattr(mesh, "owner_aligned", False):
-        raise NotImplementedError(
-            "ownership-aligned edge numbering (config_orient_edges) is not "
-            "ported yet")
-    return mesh
+def owner_tile(f_c, n_slots: int = 3):
+    """Owner-side edge values of a cell field on an ownership-aligned mesh
+    (cellsOnEdge[e, 0] == e % C): f [K, C] -> [K, n_slots*C], three copies
+    side by side instead of a gather."""
+    return f_c.repeat(1, n_slots)
+
+
+def _aligned(mesh) -> bool:
+    return bool(getattr(mesh, "owner_aligned", False))
 
 
 def edge_pairs_m(mesh, *fields):
-    return edge_pairs(_plain_mesh(mesh).cellsOnEdge, *fields)
+    """edge_pairs keyed off the MeshArrays: on an ownership-aligned mesh
+    the cell1 side is owner_tile (no gather); only cell2 gathers."""
+    if _aligned(mesh):
+        g1 = [owner_tile(f) for f in fields]
+        g2 = take_packed(mesh.cellsOnEdge[:, 1], *fields)
+        return list(zip(g1, g2))
+    return edge_pairs(mesh.cellsOnEdge, *fields)
 
 
 def edge_pair_m(mesh, f_c):
-    return edge_pair(f_c, _plain_mesh(mesh).cellsOnEdge)
+    if _aligned(mesh):
+        return (owner_tile(f_c),
+                torch.index_select(f_c, 1, mesh.cellsOnEdge[:, 1]))
+    return edge_pair(f_c, mesh.cellsOnEdge)
 
 
 def avg_cell_to_edge(f_c, cellsOnEdge):
@@ -88,7 +104,8 @@ def avg_cell_to_edge(f_c, cellsOnEdge):
 
 
 def avg_cell_to_edge_m(mesh, f_c):
-    return avg_cell_to_edge(f_c, _plain_mesh(mesh).cellsOnEdge)
+    c1, c2 = edge_pair_m(mesh, f_c)
+    return 0.5 * (c1 + c2)
 
 
 def diff_cell_to_edge(f_c, cellsOnEdge):
@@ -98,10 +115,11 @@ def diff_cell_to_edge(f_c, cellsOnEdge):
 
 
 def diff_cell_to_edge_m(mesh, f_c):
-    return diff_cell_to_edge(f_c, _plain_mesh(mesh).cellsOnEdge)
+    c1, c2 = edge_pair_m(mesh, f_c)
+    return c2 - c1
 
 
-def slot_reduce(idx, specs):
+def slot_reduce(idx, specs, split_weights=None):
     """Weighted neighborhood reduction over the M stencil slots:
         out[i][j][:, r] = sum_m specs[i].weights[j][r, m] * field_i[:, idx[r, m]]
 
@@ -111,7 +129,9 @@ def slot_reduce(idx, specs):
     Fields whose weight lists hold the same weight tensors (in any order)
     stack along dim 0 into one table and share one `gather_reduce` call,
     which applies every weight set of the list to every row of the table;
-    fields with other weight lists go to separate calls."""
+    fields with other weight lists go to separate calls. `split_weights`,
+    where given, maps the stacked [S, R, M] weights of the specs to the
+    columns of `idx` (slot_reduce_m on an aligned mesh)."""
     groups: dict = {}
     for i, (_, wl) in enumerate(specs):
         groups.setdefault(tuple(sorted(id(w) for w in wl)), []).append(i)
@@ -120,6 +140,8 @@ def slot_reduce(idx, specs):
         wl = specs[members[0]][1]
         tbl = _stack([specs[i][0] for i in members]).contiguous()
         w = torch.stack(list(wl))                                # [S, R, M]
+        if split_weights is not None:
+            w = split_weights(w)
         out = gather_reduce(tbl, idx, w)                         # [S, Kt, R]
         off = 0
         for i in members:
@@ -133,8 +155,16 @@ def slot_reduce(idx, specs):
 
 
 def slot_reduce_m(mesh, idx, specs):
-    _plain_mesh(mesh)
-    return slot_reduce(idx, specs)
+    """slot_reduce keyed off the MeshArrays. When `idx` is the mesh's own
+    edgesOnCell tensor (`idx is mesh.edgesOnCell`) on an ownership-aligned
+    mesh, the reduction runs on the split table [C, 3 + Mn] instead: the 3
+    owned planes are contiguous reads, only the non-owned slots gather, and
+    the weights are permuted to the split's columns and zeroed where a
+    column is absent. Any other table goes to the plain slot_reduce."""
+    if not (_aligned(mesh) and idx is mesh.edgesOnCell):
+        return slot_reduce(idx, specs)
+    split = mesh.eoc_split
+    return slot_reduce(split.idx, specs, split.weights)
 
 
 def sum_edges_to_cell_m(mesh, f_e, weights):
@@ -170,8 +200,22 @@ def zb_metric(flux_e, edgesOnCell, sign, zb_cell, zb3_cell):
 
 
 def zb_metric_m(mesh, flux_e, sign, zb_cell, zb3_cell):
-    return zb_metric(flux_e, _plain_mesh(mesh).edgesOnCell, sign, zb_cell,
-                     zb3_cell)
+    """zb_metric keyed off the MeshArrays. On an ownership-aligned mesh the
+    3 owned slots are the planes flux_e[:, s*C:(s+1)*C] and only the
+    non-owned slots gather; zb/zb3/sign are re-indexed to the split's
+    columns once (EocSplit.zb_planes)."""
+    if not _aligned(mesh):
+        return zb_metric(flux_e, mesh.edgesOnCell, sign, zb_cell, zb3_cell)
+    split = mesh.eoc_split
+    C = mesh.nCells
+    zb_s, zb3_s, sign_s = split.zb_planes(zb_cell, zb3_cell, sign)
+    acc = None
+    for j in range(split.width):
+        g = (flux_e[:, j * C:(j + 1) * C] if j < 3
+             else torch.index_select(flux_e, 1, split.idx[:, j]))
+        t = sign_s[:, j][None, :] * (zb_s[j] + torch.sign(g) * zb3_s[j]) * g
+        acc = t if acc is None else acc + t
+    return acc
 
 
 def sum_edges_to_vertex(f_e, edgesOnVertex, weights):

@@ -27,7 +27,8 @@ def _convert(cls, arrays: dict, dtype, device):
                                "arrays given")
             continue
         a = arrays[f.name]
-        if a is None or isinstance(a, (bool, np.bool_)):
+        if a is None or (np.ndim(a) == 0 and np.asarray(a).dtype == np.bool_):
+            # a flag such as owner_aligned, given as a bool or a 0-d array
             kw[f.name] = None if a is None else bool(a)
         elif np.issubdtype(np.asarray(a).dtype, np.integer):
             kw[f.name] = core_state.to_index(a, device)

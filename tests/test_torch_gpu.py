@@ -1,12 +1,14 @@
 """mpas_tpu_torch's CUDA kernels against their plain versions on the card,
-and a short run on the card against the same run on the CPU. Every test
-here needs a CUDA device and skips without one. The file imports no JAX, so
+and short runs on the card against the same runs on the CPU (the default
+and the ownership-aligned edge numbering). Every test here needs a CUDA
+device and skips without one. The file imports no JAX, so
 on a machine with a card and without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Setup: generate_mesh(levels=3, lloyd_iterations=2) (642 cells), 8 levels,
-float64 on the CPU, moved to the card in the dtype under test."""
+float64 on the CPU, moved to the card in the dtype under test; Kernels 3
+and 4 on renumber_mesh(generate_mesh(levels=4)) (2562 cells)."""
 
 import numpy as np
 import pytest
@@ -15,10 +17,13 @@ import torch
 from mpas_tpu_torch.config import Namelist
 from mpas_tpu_torch.dynamics.model import build_model
 from mpas_tpu_torch.mesh.generator import generate_mesh
+from mpas_tpu_torch.mesh.renumber import renumber_mesh
 from mpas_tpu_torch.ops import acoustic as TA
 from mpas_tpu_torch.ops import acoustic_column as K1
 from mpas_tpu_torch.ops import gather_reduce as K2
 from mpas_tpu_torch.ops import recover as TR
+from mpas_tpu_torch.ops import take_columns as K4
+from mpas_tpu_torch.ops import windowed as K3
 
 KW = dict(config_nvertlevels=8, config_ztop=30000.0, dtype="float64",
           config_jw_u_perturbation=1.0)
@@ -37,6 +42,11 @@ def cpu_model():
     return build_model(Namelist(**KW),
                        generate_mesh(levels=3, lloyd_iterations=2),
                        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def rmesh():
+    return renumber_mesh(generate_mesh(levels=4))[0]
 
 
 def rel_err(ref, out):
@@ -97,6 +107,43 @@ def test_gather_reduce_kernel_matches_plain(cuda, cpu_model, dtype, S):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("table,K,S", [("edgesOnCell", 48, 1),
+                                       ("edgesOnCell", 168, 3),
+                                       ("cellsOnEdge", 19, 2),
+                                       ("edgesOnEdge", 7, 4)])
+def test_windowed_reduce_kernel_matches_plain(cuda, rmesh, table, K, S):
+    idx = np.asarray(getattr(rmesh, table), np.int32)
+    plan = K3.plan_windows(idx)
+    rng = np.random.default_rng(K)
+    N = int(idx.max()) + 1
+    tbl = torch.from_numpy(rng.standard_normal(
+        (K, max(N, plan.min_table_width)), np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((S,) + idx.shape, np.float32))
+    wT = torch.stack([K3.pad_weights(plan, x, cuda) for x in w])
+    K3.launches = 0
+    out = K3.windowed_gather_reduce(plan, tbl, wT)
+    ref = K3.windowed_reduce_plain(plan, tbl, wT)
+    mag = K3.windowed_reduce_plain(plan, tbl.abs(), wT.abs())
+    torch.cuda.synchronize()
+    assert K3.launches == 1 and out.shape == (S, K, idx.shape[0])
+    eps = torch.finfo(torch.float32).eps
+    assert bool(((out - ref).abs() <= 4 * (plan.M + 1) * eps * mag).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_take_columns_kernel_matches_plain(cuda, rmesh, dtype):
+    idx = torch.from_numpy(np.asarray(rmesh.cellsOnEdge[:, 1], np.int32)).to(cuda)
+    rng = np.random.default_rng(11)
+    tbl = torch.from_numpy(rng.normal(size=(83, rmesh.nCells))).to(cuda, dtype)
+    K4.launches = 0
+    out = K4.take_columns(tbl, idx)
+    torch.cuda.synchronize()
+    assert K4.launches == 1
+    assert torch.equal(out, K4.take_columns_plain(tbl, idx))
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_bad_arguments(cuda):
     tbl = torch.zeros((3, 10), device=cuda)
     idx = torch.zeros((4, 2), dtype=torch.int64, device=cuda)
@@ -106,6 +153,17 @@ def test_wrappers_reject_bad_arguments(cuda):
         K2.gather_reduce(tbl, idx.int(), torch.zeros((5, 4, 2), device=cuda))
     with pytest.raises(ValueError):
         K2.gather_reduce(tbl.t(), idx.int(), torch.zeros((1, 4, 2), device=cuda))
+    with pytest.raises(TypeError):
+        K4.take_columns(tbl, idx[:, 0])
+    with pytest.raises(ValueError):
+        K4.take_columns(tbl.t(), idx[:, 0].int())
+    plan = K3.plan_windows(np.zeros((4, 2), np.int32))
+    wT = torch.zeros((1, 2, plan.Rp), device=cuda)
+    with pytest.raises(TypeError):
+        K3.windowed_gather_reduce(plan, tbl.double(), wT)
+    with pytest.raises(ValueError):
+        K3.windowed_gather_reduce(plan, tbl, torch.zeros((5, 2, plan.Rp),
+                                                         device=cuda))
 
 
 @pytest.mark.gpu
@@ -116,5 +174,19 @@ def test_two_steps_on_the_card_match_the_cpu(cuda, cpu_model):
     gpu.step(2)
     cpu.step(2)
     assert K1.launches == 8 and K2.launches == 54
+    for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
+        assert rel_err(getattr(cpu.state, n), getattr(gpu.state, n).cpu()) < 1e-9
+
+
+@pytest.mark.gpu
+def test_two_aligned_steps_on_the_card_match_the_cpu(cuda, cpu_model):
+    nl = Namelist(**KW, config_orient_edges=True)
+    gpu = build_model(nl, cpu_model.mesh, device="cuda")
+    cpu = build_model(nl, cpu_model.mesh, device="cpu")
+    assert gpu.mesh_arrays.owner_aligned
+    K1.launches = K2.launches = 0
+    gpu.step(2)
+    cpu.step(2)
+    assert K1.launches == 8 and K2.launches > 0
     for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
         assert rel_err(getattr(cpu.state, n), getattr(gpu.state, n).cpu()) < 1e-9

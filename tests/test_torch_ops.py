@@ -171,13 +171,13 @@ def test_stencil_matches(ref, fields, name):
     assert_close(fn(JS, ref["j"][2], jf), fn(TS, ref["t"][2], tf))
 
 
-def test_aligned_mesh_raises(ref, fields):
-    mesh = ref["t"][2].replace(owner_aligned=True)
-    f = fields[1]
-    with pytest.raises(NotImplementedError):
-        TS.edge_pair_m(mesh, f["cell"])
-    with pytest.raises(NotImplementedError):
-        TS.slot_reduce_m(mesh, mesh.edgesOnCell, [(f["edge"], [f["wc"]])])
+def test_aligned_mesh_raises(ref):
+    """A mesh flagged ownership-aligned whose edges are numbered otherwise
+    is refused when its MeshArrays are made (the aligned `_m` stencils,
+    held against mpas_tpu in tests/test_torch_numbering.py, would read the
+    wrong edges)."""
+    with pytest.raises(ValueError, match="owner_aligned"):
+        ref["t"][2].replace(owner_aligned=True)
 
 
 def test_compute_vert_imp_coefs(ref):

@@ -112,7 +112,7 @@ def test_build_model_on_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("change", [
     dict(config_init_case=21), dict(config_cell_form_ops=True),
-    dict(config_orient_edges=True), dict(config_moisture=True),
+    dict(config_hollingsworth=True), dict(config_moisture=True),
     dict(config_microphysics="kessler"), dict(config_apvm_upwinding=0.5)])
 def test_unported_options_raise(change):
     with pytest.raises(NotImplementedError):
