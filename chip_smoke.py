@@ -10,26 +10,34 @@ path against its plain PyTorch version on the inputs the path gives it.
 Phases, each printing one JSON line:
 
   1. nvidia-smi: the card's name and power limit;
-  2. build: compile csrc/*.cu (one nvcc per source, in parallel);
+  2. build: compile csrc/*.cu (one nvcc per object, in parallel), with each
+     kernel's registers, static shared memory and spills from ptxas -v;
   3. acoustic_column: Kernel 1 against its plain version on the inputs of
      the step's first call, in float32 and (inputs widened) float64;
   4. gather_reduce: Kernel 2 against its plain version at every distinct
-     call shape of one step;
+     call shape of one step: the form the wrapper picks, and both forms by
+     name, in float32 and (inputs widened) float64; its times on a busy
+     device, with a cold L2 and launched onto an idle device; gather_forms:
+     both forms in turns on the edgesOnEdge reduction;
   5. main path: 10 full-width steps with the launch counters set to 0
      first; no NaN, sane extrema, each kernel launched;
   6. profile: PROFILE_STEPS more steps traced with torch.profiler, for
      launches per step, the device-busy share and device time by kernel;
   7. main_path_orient: the same run with config_orient_edges=True (the JAX
      bench's setting) on the same mesh, with Kernel 2 checked at the shapes
-     the aligned step adds, 10 counted steps and PROFILE_STEPS traced ones;
+     the aligned step adds (gather_reduce_orient, gather_forms), 10 counted
+     steps and PROFILE_STEPS traced ones;
   8. agreement: 2 steps on the card and on the CPU at x1.2562, 8 levels,
      float64, port against port, on the default numbering and (agreement_
      orient) with config_renumber_mesh and config_orient_edges;
   9. windowed_study: Kernel 3 (windowed gather-reduce) against its plain
      version, Kernel 2 and the index_select loop on the RCM-renumbered
-     x1.40962 mesh at Kst = 48 and 168 levels (probes.windowed_study);
+     x1.40962 mesh at Kst = 48 and 168 levels (probes.windowed_study), and
+     windowed_step_table: Kernel 3 beside Kernel 2 on the step's own
+     edgesOnEdge reduction (82 levels) on the default and aligned numbering;
  10. gather_probe: Kernel 4 (column gather, the probe's A and B) and
-     Kernel 2 (its C) at K=83, C=40962, R=122880, M=10 (probes.gather_probe).
+     Kernel 2 (its C, both forms) at K=83, C=40962, R=122880, M=10
+     (probes.gather_probe).
 
 Every timed phase carries the card's SM clock, its maximum, temperature and
 power draw read before and after it (`smi_before`, `smi_after`). Then a
@@ -204,47 +212,112 @@ def check_acoustic(args, torch):
         ins += [x for x in a[10:15]]
         nb = nbytes(*ins) + nbytes(*out_k)
         b_ms, b_by = bound(nb, ACOUSTIC_FLOPS_PER_POINT * K * C, name)
-        ms = cuda_ms(lambda: ac.acoustic_column_update(*a))
+        k1 = lambda: ac.acoustic_column_update(*a)
+        ms = cuda_ms(k1)
         plain_ms = cuda_ms(lambda: ac.acoustic_column_update_plain(*a), reps=20)
         res[name] = dict(K=K, C=C, max_abs_err=err, max_rel_err=rel,
                          limit_rel=limit, ms=ms, plain_ms=plain_ms,
+                         ms_cold_l2=cuda_ms(k1, cold_l2=True),
+                         ms_after_idle=cuda_ms(k1, after_idle=True),
                          bytes=nb, bound_ms=b_ms, bound_by=b_by)
     return res
 
 
 def check_gather_reduce(calls, torch):
+    """One row per call shape: the form `gather_reduce` picks and both forms
+    by name against the plain version, float32 and float64, and the times."""
     from mpas_tpu_torch.ops import gather_reduce as gr
-    from mpas_tpu_torch.probes import csr_weights, cuda_ms, roundoff_ratio
+    from mpas_tpu_torch.probes import (csr_same_layout, csr_weights, cuda_ms,
+                                       roundoff_ratio)
+    forms = {"picked": gr.gather_reduce, "direct": gr.gather_reduce_direct,
+             "rows": gr.gather_reduce_rows}
     rows = []
     for (Kt, N, R, M, S), hit in calls.items():
         tbl, idx, w = hit["args"]
-        out_k = gr.gather_reduce(tbl, idx, w)
+        ratios = {}
+        for name, (t, ww) in (("f32", (tbl, w)),
+                              ("f64", (tbl.double(), w.double()))):
+            out_p = gr.gather_reduce_plain(t, idx, ww)
+            mag = gr.gather_reduce_plain(t.abs(), idx, ww.abs())
+            for form, fn in forms.items():
+                out_k = fn(t, idx, ww)
+                torch.cuda.synchronize()
+                ratios[f"{form}_{name}"] = roundoff_ratio(out_k, out_p, mag, M)
+                if (not bool(torch.isfinite(out_k).all())
+                        or not ratios[f"{form}_{name}"] <= 1.0):
+                    raise RuntimeError(
+                        f"gather_reduce {(Kt, N, R, M, S)} {form} {name}: "
+                        "error over its round-off bound")
         out_p = gr.gather_reduce_plain(tbl, idx, w)
-        mag = gr.gather_reduce_plain(tbl.abs(), idx, w.abs())
-        torch.cuda.synchronize()
-        ratio = roundoff_ratio(out_k, out_p, mag, M)
-        err = float((out_k - out_p).abs().max())
-        if not bool(torch.isfinite(out_k).all()) or ratio > 1.0:
-            raise RuntimeError(f"gather_reduce {(Kt, N, R, M, S)}: max err "
-                               f"{err} over its round-off bound")
+        err = float((gr.gather_reduce(tbl, idx, w) - out_p).abs().max())
         # the same function as one PyTorch call: a CSR sparse product of the
         # [S*R, N] weight matrix with the table's transpose
         W = csr_weights(idx, w, N)
         tblT = tbl.t().contiguous()
-        lib_out = torch.sparse.mm(W, tblT).reshape(S, R, Kt).transpose(1, 2)
+        lib_out = csr_same_layout(W, tbl, S, R)
         lib_err = float((lib_out - out_p).abs().max()
                         / out_p.abs().max().clamp_min(1e-30))
-        nb = nbytes(tbl, w, out_k) + R * M * 4
+        nb = nbytes(tbl, w, out_p) + R * M * 4
         b_ms, b_by = bound(nb, 2 * S * Kt * R * M, "float32")
+        sectors = gr.index_scatter(idx, tbl.element_size())
+        k2 = lambda: gr.gather_reduce(tbl, idx, w)
         rows.append(dict(
             Kt=Kt, N=N, R=R, M=M, S=S, calls_per_step=hit["calls"],
-            max_abs_err=err, max_err_over_bound=ratio,
+            idx_row_stride=idx.stride(0), sectors=sectors,
+            gain=gr.row_form_gain(sectors, tbl.element_size(), N, R, M),
+            form="rows" if gr.uses_row_form(tbl, idx) else "direct",
+            max_abs_err=err, max_err_over_bound=max(ratios.values()),
+            err_over_bound=ratios,
             max_abs_out=float(out_p.abs().max()), library_max_rel_err=lib_err,
-            ms=cuda_ms(lambda: gr.gather_reduce(tbl, idx, w)),
+            ms=cuda_ms(k2), ms_cold_l2=cuda_ms(k2, cold_l2=True),
+            ms_after_idle=cuda_ms(k2, after_idle=True),
             plain_ms=cuda_ms(lambda: gr.gather_reduce_plain(tbl, idx, w)),
             library_ms=cuda_ms(lambda: torch.sparse.mm(W, tblT)),
+            library_same_layout_ms=cuda_ms(
+                lambda: csr_same_layout(W, tbl, S, R)),
             bytes=nb, bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+MIXED_FRACTIONS = (0.2, 0.3)   # random entries mixed into edgesOnEdge
+
+
+def emit_gather_forms(calls, numbering):
+    """Both forms of Kernel 2 in turns on the step's edgesOnEdge reduction
+    (the widest table of the step: M = 10 slots, 2 x 41 levels), on the
+    call whose index table has the largest `row_form_gain`, and, on the
+    default numbering, on edgesOnEdge with a share of random entries: the
+    measurements that `gather_reduce.ROW_FORM_MIN_GAIN` rests on. Returns
+    the edgesOnEdge row."""
+    from mpas_tpu_torch.ops import gather_reduce as gr
+    from mpas_tpu_torch.probes import gather_forms, mixed_index_table
+
+    def gain(key):
+        tbl, idx, _ = calls[key]["args"]
+        size = tbl.element_size()
+        return gr.row_form_gain(gr.index_scatter(idx, size), size,
+                                tbl.shape[1], *idx.shape)
+
+    widest = max(calls, key=lambda k: k[0] * k[2] * k[3])
+    scattered = max(calls, key=gain)
+    cases = [("widest", widest, calls[widest]["args"]),
+             ("largest_gain", scattered, calls[scattered]["args"])]
+    if numbering == "default":
+        tbl, idx, w = calls[widest]["args"]
+        cases += [(f"random_fraction_{f}", widest,
+                   (tbl, mixed_index_table(idx, f, tbl.shape[1]), w))
+                  for f in MIXED_FRACTIONS]
+    rows = {}
+    for what, key, args in cases:
+        res = gather_forms(*args)
+        for form in ("direct", "rows"):
+            if not res[f"{form}_err_over_bound"] <= 1.0:
+                raise RuntimeError(f"gather_forms {numbering} {what} {form}: "
+                                   "error over its round-off bound")
+        emit({"phase": "gather_forms", "numbering": numbering, "case": what,
+              "shape": list(key), **res})
+        rows[what] = res
+    return rows["widest"]
 
 
 def check_summary(summ, what):
@@ -266,6 +339,7 @@ def counted_steps(model, torch):
     from mpas_tpu_torch.ops import acoustic_column, gather_reduce
     from mpas_tpu_torch.probes import step_ms
     acoustic_column.launches = gather_reduce.launches = 0
+    gather_reduce.row_form_launches = 0
     torch.cuda.reset_peak_memory_stats()
     cpu0 = time.process_time()
     times = step_ms(model, MAIN_STEPS)
@@ -277,6 +351,8 @@ def counted_steps(model, torch):
     return dict(steps=MAIN_STEPS, ms_per_step_median=statistics.median(times),
                 ms_per_step=times, host_cpu_ms_per_step=cpu_ms,
                 launches=launches,
+                gather_reduce_row_form_launches=gather_reduce.row_form_launches,
+                gather_sectors=model.mesh_arrays.gather_sectors,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 summary=model.summarize())
 
@@ -336,7 +412,11 @@ def main():
     lib_path = cuda_build.build()
     cuda_build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib_path)})
+          "library": os.path.relpath(lib_path),
+          "ptxas_kernel_registers_smem_spill": {
+              obj: [[r["kernel"], r["registers"], r["smem_bytes"],
+                     r["spill_bytes"]] for r in rows]
+              for obj, rows in cuda_build.ptxas_report().items()}})
 
     # full-width model: x1.40962, 41 levels, float32, dt=300 s
     t0 = time.perf_counter()
@@ -359,6 +439,7 @@ def main():
     k2 = check_gather_reduce(k2_calls, torch)
     for row in k2:
         emit({"phase": "gather_reduce", **row})
+    forms = {"default": emit_gather_forms(k2_calls, "default")}
 
     # 5. the main path: 10 full-width steps, counted
     main = timed(lambda: counted_steps(model, torch))
@@ -383,8 +464,10 @@ def main():
     setup_o = time.perf_counter() - t0
     _, calls = record_step(model)
     new_calls = {k: v for k, v in calls.items() if k not in shapes_seen}
-    for row in check_gather_reduce(new_calls, torch):
+    k2_orient = check_gather_reduce(new_calls, torch)
+    for row in k2_orient:
         emit({"phase": "gather_reduce_orient", **row})
+    forms["aligned"] = emit_gather_forms(calls, "aligned")
     del calls, new_calls
     orient = timed(lambda: counted_steps(model, torch))
     prof = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
@@ -395,6 +478,7 @@ def main():
           "setup_s_by_stage": model.setup_seconds, **orient,
           "profile": prof})
     check_summary(orient["summary"], "main_path_orient")
+    mesh_aligned = model.mesh
     del model
     torch.cuda.empty_cache()
 
@@ -424,6 +508,18 @@ def main():
                                f"its round-off bound ({worst})")
     if k3_launches <= 0:
         raise RuntimeError("windowed_study never launched Kernel 3")
+    # Kernel 3 beside Kernel 2 on the step's own edgesOnEdge reduction
+    for numbering, m in (("default", mesh), ("aligned", mesh_aligned)):
+        row = probes.reduce_study(
+            m.edgesOnEdge, m.weightsOnEdge * m.edgesOnEdge_mask, m.nEdges, 82)
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"],
+                                                 "float32")
+        emit({"phase": "windowed_step_table", "table": "edgesOnEdge",
+              "numbering": numbering, **row})
+        if max(row["err_over_bound"], row["gather_reduce_err_over_bound"],
+               row["err_over_bound_vs_index_select"]) > 1.0:
+            raise RuntimeError(f"windowed_step_table {numbering}: error over "
+                               "its round-off bound")
 
     # 10. the gather probe: Kernel 4 (A, B) and Kernel 2 (C)
     take_columns.launches = 0
@@ -438,7 +534,10 @@ def main():
               "smi_after": probe["smi_after"]})
     if probe["A"]["max_abs_err"] != 0.0 or probe["B"]["max_abs_err"] != 0.0:
         raise RuntimeError("gather_probe: Kernel 4 differs from index_select")
-    if probe["C"]["err_over_bound"] > 1.0:
+    forms["probe_c"] = probe["C"]["forms"]
+    if max(probe["C"]["err_over_bound"],
+           forms["probe_c"]["direct_err_over_bound"],
+           forms["probe_c"]["rows_err_over_bound"]) > 1.0:
         raise RuntimeError("gather_probe C: error over its round-off bound")
     if k4_launches <= 0:
         raise RuntimeError("gather_probe never launched Kernel 4")
@@ -455,7 +554,10 @@ def main():
          "launches_orient": orient["launches"]["acoustic_column"],
          "max_abs_err": k1["float32"]["max_abs_err"],
          "max_rel_err": k1["float32"]["max_rel_err"],
-         "ms": k1["float32"]["ms"], "plain_ms": k1["float32"]["plain_ms"],
+         "ms": k1["float32"]["ms"],
+         "ms_cold_l2": k1["float32"]["ms_cold_l2"],
+         "ms_after_idle": k1["float32"]["ms_after_idle"],
+         "plain_ms": k1["float32"]["plain_ms"],
          "bound_ms": k1["float32"]["bound_ms"],
          "bound_by": k1["float32"]["bound_by"], "library_ms": None,
          "shape": [k1["float32"]["K"], k1["float32"]["C"]]},
@@ -465,32 +567,41 @@ def main():
          "also_replaces": ["tools/pallas_gather_probe.py:110"],
          "launches": launches["gather_reduce"],
          "launches_orient": orient["launches"]["gather_reduce"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2),
-         "max_err_over_bound": max(r["max_err_over_bound"] for r in k2),
-         "ms": big["ms"], "plain_ms": big["plain_ms"],
+         "row_form_launches": main["gather_reduce_row_form_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in k2 + k2_orient),
+         "max_err_over_bound": max(r["max_err_over_bound"]
+                                   for r in k2 + k2_orient),
+         "ms": big["ms"], "ms_cold_l2": big["ms_cold_l2"],
+         "ms_after_idle": big["ms_after_idle"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
          "library_ms": big["library_ms"],
+         "library_same_layout_ms": big["library_same_layout_ms"],
          "shape": [big["Kt"], big["N"], big["R"], big["M"], big["S"]],
          "probe_c": {k: probe["C"][k] for k in
-                     ("ms", "plain_ms", "bound_ms", "library_ms",
-                      "err_over_bound")}},
+                     ("ms", "ms_cold_l2", "plain_ms", "bound_ms", "library_ms",
+                      "library_same_layout_ms", "err_over_bound")},
+         "forms": forms},
         {"name": "windowed_reduce", "route": "cuda",
          "source": "mpas_tpu_torch/csrc/windowed_reduce.cu",
          "replaces": "tools/windowed_study.py:48",
          "launches": k3_launches,
          "max_abs_err": max(r["max_abs_err"] for r in study["rows"]),
          "max_err_over_bound": max(r["err_over_bound"] for r in study["rows"]),
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "ms": k3["ms"], "ms_cold_l2": k3["ms_cold_l2"],
+         "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"],
-         "shape": [k3["Kst"], k3["E"], k3["C"], k3["M"], k3["W"]]},
+         "library_same_layout_ms": k3["library_same_layout_ms"],
+         "staged_bytes": k3["staged_bytes"], "bytes": k3["bytes"],
+         "shape": [k3["Kst"], k3["E"], k3["C"], k3["M"], k3["U"]]},
         {"name": "take_columns", "route": "cuda",
          "source": "mpas_tpu_torch/csrc/take_columns.cu",
          "replaces": "tools/pallas_gather_probe.py:55",
          "also_replaces": ["tools/pallas_gather_probe.py:82"],
          "launches": k4_launches,
          "max_abs_err": max(a["max_abs_err"], probe["B"]["max_abs_err"]),
-         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+         "ms": a["ms"], "ms_cold_l2": a["ms_cold_l2"],
+         "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["bound_by"], "library_ms": a["library_ms"],
          "shape": [a["K"], a["C"], a["R"]]},
     ]

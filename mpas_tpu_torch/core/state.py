@@ -30,6 +30,7 @@ from .. import constants
 from ..mesh.loader import Mesh
 from ..mesh import coefficients as mcoef
 from ..core.vertical import VerticalGrid
+from ..ops.gather_reduce import index_scatter
 
 
 class _Replace:
@@ -176,6 +177,11 @@ class MeshArrays(_Replace):
     owner_aligned: bool = False
     eoc_split: Any = None
 
+    # `gather_reduce.index_scatter` of each index table that the step's
+    # reductions read (the statistic that picks the gather-reduce kernel's
+    # form), by table name; computed here, once, with the bounds check
+    gather_sectors: Any = None
+
     def __post_init__(self):
         # the gather-reduce kernel reads through these tables without a
         # bounds check, so an out-of-range entry is refused here, once
@@ -197,6 +203,16 @@ class MeshArrays(_Replace):
                                  "numbered s*nCells + owner (mesh/orient.py)")
             self.eoc_split = EocSplit.build(self.edgesOnCell,
                                             self.edgesOnCell_mask)
+        tables = {name: getattr(self, name) for name in
+                  ("edgesOnCell", "edgesOnVertex", "edgesOnEdge")}
+        # the advection reduction reads the neighbour slots only
+        tables["advCellsForEdge[:, 2:]"] = self.advCellsForEdge[:, 2:]
+        if self.eoc_split is not None:
+            tables["eoc_split.idx"] = self.eoc_split.idx
+        itemsize = self.edgesOnCell_mask.element_size()
+        self.gather_sectors = {
+            name: index_scatter(t, itemsize)
+            for name, t in tables.items() if t.numel()}
 
     @property
     def nCells(self):

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-Each source is compiled by its own `nvcc` process, all started together, for
-`sm_90a` into an object file; the objects link into one shared library with
+Each source is compiled by its own `nvcc` process (gather_reduce.cu by two,
+one per element type), all started together, for `sm_90a` into an object
+file; the objects link into one shared library with
 a plain C interface, loaded with `ctypes`. The library lands in
 `mpas_tpu_torch/_build/` under a name that carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,8 +24,13 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("acoustic_column.cu", "gather_reduce.cu", "windowed_reduce.cu",
-           "take_columns.cu")
+# (source, extra flags, object name): gather_reduce.cu compiles once per
+# element type, so that its two sets of instantiations build side by side
+SOURCES = (("acoustic_column.cu", (), "acoustic_column"),
+           ("gather_reduce.cu", ("-DGATHER_REDUCE_F32",), "gather_reduce_f32"),
+           ("gather_reduce.cu", ("-DGATHER_REDUCE_F64",), "gather_reduce_f64"),
+           ("windowed_reduce.cu", (), "windowed_reduce"),
+           ("take_columns.cu", (), "take_columns"))
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,8 +49,8 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
+    for name, flags, obj in SOURCES:
+        h.update(" ".join((name, *flags, obj)).encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -63,9 +70,11 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for name in SOURCES:
-            obj = Path(tmp) / (name + ".o")
-            cmd = [nvcc, *ARCH, *FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        for src, flags, stem in SOURCES:
+            name = stem + ".o"
+            obj = Path(tmp) / name
+            cmd = [nvcc, *ARCH, *FLAGS, *flags, "-c", str(CSRC / src), "-o",
+                   str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -86,6 +95,46 @@ def build() -> Path:
     return lib
 
 
+def ptxas_report() -> dict:
+    """What `ptxas -v` said of each kernel of the built library, by object:
+    {object: [{"kernel", "registers", "smem_bytes", "spill_bytes"}, ...]},
+    `smem_bytes` the static shared memory. Kernel names are demangled where
+    the toolkit's cu++filt is at hand and cut before their argument list."""
+    build()
+    text = (BUILD_DIR / f"ptxas_{_digest()}.log").read_text()
+    report: dict = {}
+    for block in text.split("== ")[1:]:
+        source, _, body = block.partition("\n")
+        rows = []
+        for part in body.split("Compiling entry function '")[1:]:
+            name = part.split("'", 1)[0]
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", part)
+            regs = re.search(r"Used (\d+) registers", part)
+            smem = re.search(r"(\d+) bytes smem", part)
+            rows.append({"kernel": name,
+                         "registers": int(regs.group(1)) if regs else None,
+                         "smem_bytes": int(smem.group(1)) if smem else 0,
+                         "spill_bytes": (int(spills.group(1))
+                                         + int(spills.group(2))) if spills
+                         else None})
+        report[source.strip()] = rows
+    names = [r["kernel"] for rows in report.values() for r in rows]
+    filt = Path(_nvcc()).parent / "cu++filt"
+    if names and filt.exists():
+        res = subprocess.run([str(filt), *names], capture_output=True,
+                             text=True)
+        plain = res.stdout.splitlines()
+        if res.returncode == 0 and len(plain) == len(names):
+            short = iter(re.split(r"\((?!int\))", n)[0].replace("(int)", "")
+                         .replace("<unnamed>::", "").replace("void ", "")
+                         for n in plain)
+            for rows in report.values():
+                for r in rows:
+                    r["kernel"] = next(short)
+    return report
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
@@ -99,13 +148,17 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"acoustic_column_update_{suffix}")
         fn.argtypes = [_P] * 26 + [_I, _I, _D, _D, _P]
         fn.restype = _I
-        fn = getattr(lib, f"gather_reduce_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        for form in ("direct", "rows"):
+            fn = getattr(lib, f"gather_reduce_{form}_{suffix}")
+            fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+            fn.restype = _I
+        fn = getattr(lib, f"transpose_table_{suffix}")
+        fn.argtypes = [_P, _P, _I, _I, _I, _P]
         fn.restype = _I
         fn = getattr(lib, f"take_columns_{suffix}")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         fn.restype = _I
-    lib.windowed_reduce_f32.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+    lib.windowed_reduce_f32.argtypes = [_P] * 6 + [_I] * 10 + [_P]
     lib.windowed_reduce_f32.restype = _I
     lib.mpas_cuda_error_string.argtypes = [_I]
     lib.mpas_cuda_error_string.restype = ctypes.c_char_p

@@ -3,17 +3,22 @@
 The port of tools/windowed_kernels.py, a study module. With the RCM
 renumbering (mesh/renumber.py) the indices of every 128-output block of a
 stencil table fall in one narrow window of W columns of the source table.
-`WindowPlan` plans that once on the host (window starts `ws`, width `W`,
-local indices `idx_localT`); `windowed_reduce`, `slot_reduce_windowed` and
+`WindowPlan` plans that once on the host: the JAX module's window starts
+`ws`, width `W` and local indices `idx_localT`, and the column plan the
+CUDA kernel reads, per block the sorted distinct columns its references
+name (`cols`, `U` wide) and each reference as a position in that list
+(`idx_colsT`). `windowed_reduce`, `slot_reduce_windowed` and
 `edge_pairs_windowed` have the JAX functions' signatures without
 `precision`/`interpret` and return the same nested lists. They work in
 float32, as the JAX functions do.
 
 For tensors on the card they launch the CUDA kernel in
-csrc/windowed_reduce.cu, which stages each block's window in shared memory
-and gathers from there; for tensors on the CPU they run
-`windowed_reduce_plain`, which rebuilds each global index from the plan
-(ws[b]*128 + idx_local) and sums the M slots in order. `probes.
+csrc/windowed_reduce.cu, which stages the block's columns (not its whole
+window) in shared memory and gathers from there, so an index table of any
+numbering is legal: a block that names many columns costs shared memory,
+not correctness. For tensors on the CPU they run `windowed_reduce_plain`,
+which rebuilds each global index from the column plan
+(cols[r // 128, idx_colsT[m, r]]) and sums the M slots in order. `probes.
 windowed_study` runs them; the main path does not (its reductions go to
 ops/gather_reduce.py on any numbering).
 """
@@ -28,8 +33,11 @@ import torch
 
 BLOCK = 128
 MAX_WEIGHT_SETS = 4
-SMEM_TARGET = 96 * 1024     # per CTA, so that two CTAs fit on an SM
+LIST_ALIGN = 32             # a block's column list is padded to a warp
+SMEM_TARGET = 32 * 1024     # per CTA, so that seven CTAs fit on an SM
 SMEM_MAX = 232448           # Hopper's per-block limit (227 KB)
+SMEM_SM = 233472            # shared memory of one SM (228 KB)
+CTA_WAVES = 4               # CTAs launched per CTA the card holds at once
 
 # kernel launches since the counter was last set to 0
 launches = 0
@@ -43,8 +51,13 @@ def _host(a) -> np.ndarray:
 
 class WindowPlan:
     """Host-side planning of one index array: per-block window starts
-    (in units of 128 columns), the common window width W, and local
-    indices."""
+    (in units of 128 columns), the common window width W and local
+    indices, as tools/windowed_kernels.py plans them; and the column plan:
+    `cols` [nb, U] int32, per block the sorted distinct columns its
+    block*M references name, `ncols` [nb] of them, a short list padded
+    with its last column, U the longest list rounded up to 32;
+    `idx_colsT` [M, Rp] int32, each reference as a position in its block's
+    list, so that cols[r // block, idx_colsT[m, r]] == idx[r, m]."""
 
     def __init__(self, idx_np: np.ndarray, block: int = BLOCK):
         idx_np = np.asarray(idx_np)
@@ -68,18 +81,37 @@ class WindowPlan:
         self.pad = pad
         self.idx_localT = np.ascontiguousarray(
             local.T.astype(np.int32))                    # [M, Rp]
-        # a table must be this wide so that ws*128 + W never overruns
+        # the TPU kernel's table must be this wide (ws*128 + W never
+        # overruns); the CUDA kernel needs only max_index + 1 columns
         self.min_table_width = int(ws.max()) * 128 + W
+        self.max_index = int(idx_p.max())
+
+        refs = idx_p.reshape(nb, block * M).astype(np.int64)
+        order = np.argsort(refs, axis=1, kind="stable")
+        srt = np.take_along_axis(refs, order, axis=1)
+        pos_sorted = np.zeros_like(srt)
+        pos_sorted[:, 1:] = np.cumsum(srt[:, 1:] != srt[:, :-1], axis=1)
+        pos = np.empty_like(pos_sorted)
+        np.put_along_axis(pos, order, pos_sorted, axis=1)
+        ncols = pos_sorted[:, -1] + 1
+        U = int(-(-int(ncols.max()) // LIST_ALIGN) * LIST_ALIGN)
+        cols = np.repeat(srt[:, -1:], U, axis=1)
+        np.put_along_axis(cols, pos_sorted, srt, axis=1)
+        self.U = U
+        self.cols = np.ascontiguousarray(cols.astype(np.int32))  # [nb, U]
+        self.ncols = ncols.astype(np.int32)                      # [nb]
+        self.idx_colsT = np.ascontiguousarray(
+            pos.reshape(Rp, M).T.astype(np.int32))               # [M, Rp]
         self._on_device: dict = {}
 
     def device_tables(self, device):
-        """(ws [nb], idx_localT [M, Rp]) as int32 tensors on `device`,
-        copied there once."""
+        """(cols [nb, U], ncols [nb], idx_colsT [M, Rp]) as int32 tensors on
+        `device`, copied there once."""
         key = str(torch.device(device))
         hit = self._on_device.get(key)
         if hit is None:
-            hit = (torch.from_numpy(self.ws).to(device),
-                   torch.from_numpy(self.idx_localT).to(device))
+            hit = tuple(torch.from_numpy(a).to(device)
+                        for a in (self.cols, self.ncols, self.idx_colsT))
             self._on_device[key] = hit
         return hit
 
@@ -110,29 +142,41 @@ def pad_weights(plan: WindowPlan, w, device=None):
 
 def level_chunk(plan: WindowPlan, Kin: int, S: int):
     """(KC, shared bytes per CTA) of the kernel for a [Kin, ...] table and S
-    weight sets: the window tile [KC, W] plus the block's local indices and
-    weights, at most SMEM_TARGET where one level fits, else SMEM_MAX; the
-    levels split into equal chunks."""
-    extra = 4 * BLOCK * plan.M * (1 + S)
-    kc_max = (SMEM_TARGET - extra) // (4 * plan.W)
+    weight sets: a ring of two stages of [KC, U] floats plus the block's
+    column list, positions and weights, at most SMEM_TARGET where a ring of
+    one level fits in that, else SMEM_MAX; the levels split into equal
+    chunks."""
+    extra = 4 * (plan.U + BLOCK * plan.M * (1 + S))
+    kc_max = (SMEM_TARGET - extra) // (8 * plan.U)
     if kc_max < 1:
-        kc_max = (SMEM_MAX - extra) // (4 * plan.W)
+        kc_max = (SMEM_MAX - extra) // (8 * plan.U)
     if kc_max < 1:
-        raise ValueError(f"windowed_reduce: a window of W={plan.W} columns "
-                         f"does not fit in {SMEM_MAX} bytes of shared memory")
+        raise ValueError(f"windowed_reduce: two stages of U={plan.U} columns "
+                         f"do not fit in {SMEM_MAX} bytes of shared memory")
     n_chunks = -(-Kin // kc_max)
     kc = -(-Kin // n_chunks)
-    return kc, 4 * kc * plan.W + extra
+    return kc, 8 * kc * plan.U + extra
+
+
+def level_slices(plan: WindowPlan, Kin: int, kc: int, smem: int,
+                 n_sm: int) -> int:
+    """How many CTAs share a block's level chunks (the grid's second
+    dimension): enough that the launch holds CTA_WAVES CTAs for each one
+    the card's `n_sm` SMs keep resident at `smem` bytes each, at most one
+    per chunk."""
+    # a resident CTA also takes 1 KB of the SM's shared memory for the system
+    resident = n_sm * max(1, min(SMEM_SM // (smem + 1024), 2048 // BLOCK))
+    return max(1, min(-(-Kin // kc), -(-CTA_WAVES * resident // plan.nb)))
 
 
 def windowed_reduce_plain(plan: WindowPlan, tbl, wT):
-    """The plain PyTorch version: tbl [Kin, Np] (Np >= min_table_width),
+    """The plain PyTorch version: tbl [Kin, Np] (Np > plan.max_index),
     wT [S, M, Rp] -> [S, Kin, R], with every global index rebuilt from the
-    plan as ws[r // block]*128 + idx_localT[m, r] and the M slots summed in
-    order m = 0..M-1."""
-    ws, idxT = plan.device_tables(tbl.device)
-    base = torch.repeat_interleave(ws.long() * 128, plan.block)      # [Rp]
-    glob = base[None, :plan.R] + idxT[:, :plan.R].long()             # [M, R]
+    column plan as cols[r // block, idx_colsT[m, r]] and the M slots summed
+    in order m = 0..M-1."""
+    cols, _, idxT = plan.device_tables(tbl.device)
+    rows = torch.arange(plan.R, device=tbl.device) // plan.block     # [R]
+    glob = cols[rows[None], idxT[:, :plan.R].long()]                 # [M, R]
     acc = None
     for m in range(plan.M):
         g = torch.index_select(tbl, 1, glob[m])                      # [Kin, R]
@@ -142,9 +186,12 @@ def windowed_reduce_plain(plan: WindowPlan, tbl, wT):
 
 
 def windowed_gather_reduce(plan: WindowPlan, tbl, wT):
-    """tbl [Kin, Np] float32 (contiguous, Np >= plan.min_table_width),
+    """tbl [Kin, Np] float32 (contiguous, Np > plan.max_index),
     wT [S, M, Rp] float32 with S <= 4 -> [S, Kin, R]: Kernel 3 on the card,
     `windowed_reduce_plain` on the CPU."""
+    if tbl.dim() != 2 or tbl.shape[0] < 1 or tbl.shape[1] <= plan.max_index:
+        raise ValueError(f"windowed_reduce: table {tuple(tbl.shape)} must "
+                         f"have a row and more than {plan.max_index} columns")
     if tbl.device.type == "cpu":
         return windowed_reduce_plain(plan, tbl, wT)
     if tbl.device.type != "cuda":
@@ -160,42 +207,50 @@ def windowed_gather_reduce(plan: WindowPlan, tbl, wT):
     if wT.shape != (S, plan.M, plan.Rp) or not 1 <= S <= MAX_WEIGHT_SETS:
         raise ValueError(f"windowed_reduce: wT must be [S<=4, {plan.M}, "
                          f"{plan.Rp}], got {tuple(wT.shape)}")
-    if Np < plan.min_table_width or plan.block != BLOCK:
-        raise ValueError(f"windowed_reduce: table width {Np} < "
-                         f"{plan.min_table_width} or block {plan.block} != "
-                         f"{BLOCK}")
+    if plan.block != BLOCK:
+        raise ValueError(f"windowed_reduce: the kernel takes blocks of "
+                         f"{BLOCK} outputs, the plan has {plan.block}")
     if wT.device != tbl.device:
         raise ValueError(f"windowed_reduce: wT on {wT.device}, tbl on "
                          f"{tbl.device}")
     if not (tbl.is_contiguous() and wT.is_contiguous()):
         raise ValueError("windowed_reduce: tbl and wT must be contiguous")
-    ws, idxT = plan.device_tables(tbl.device)
+    cols, ncols, idxT = plan.device_tables(tbl.device)
     kc, smem = level_chunk(plan, Kin, S)
+    slices = level_slices(plan, Kin, kc, smem, sm_count(tbl.device))
     out = torch.empty((S, Kin, plan.R), dtype=torch.float32, device=tbl.device)
     code = cuda_build.library().windowed_reduce_f32(
-        tbl.data_ptr(), ws.data_ptr(), idxT.data_ptr(), wT.data_ptr(),
-        out.data_ptr(), Kin, Np, plan.R, plan.Rp, plan.M, S, plan.W, kc, smem,
+        tbl.data_ptr(), cols.data_ptr(), ncols.data_ptr(), idxT.data_ptr(),
+        wT.data_ptr(), out.data_ptr(), Kin, Np, plan.R, plan.Rp, plan.M, S,
+        plan.U, kc, slices, smem,
         torch.cuda.current_stream(tbl.device).cuda_stream)
     cuda_build.check(code, "windowed_reduce")
     launches += 1
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def windowed_reduce(plan: WindowPlan, fields, weight_sets, entries):
     """out[e][:, r] = sum_m weight_sets[s_e][r, m] * fields[f_e][:, idx[r, m]]
     for each entry e = (f_e, s_e).
 
-    fields: tensors [K_i, N] sharing the planned index array (N >= the
-    index range). They stack along dim 0 into one float32 table, padded
-    with zero columns to the plan's `min_table_width`; the kernel applies
+    fields: tensors [K_i, N] sharing the planned index array (N > the
+    largest index). They stack along dim 0 into one float32 table, fields
+    narrower than the widest padded with zero columns; the kernel applies
     every weight set to every row of the table, four sets a launch.
     Returns a list of [K_i, R] tensors in entry order."""
     dev = fields[0].device
     offs = np.cumsum([0] + [int(f.shape[0]) for f in fields])
-    width = max([plan.min_table_width] + [int(f.shape[1]) for f in fields])
-    tbl = torch.zeros((int(offs[-1]), width), dtype=torch.float32, device=dev)
-    for f, o in zip(fields, offs):
-        tbl[o:o + f.shape[0], :f.shape[1]] = f
+    width = max(int(f.shape[1]) for f in fields)
+    parts = [torch.nn.functional.pad(f, (0, width - f.shape[1]))
+             if f.shape[1] < width else f for f in fields]
+    tbl = (parts[0] if len(parts) == 1 else torch.cat(parts)
+           ).float().contiguous()
     wT = torch.stack([pad_weights(plan, w, dev) for w in weight_sets])
     out = torch.cat([windowed_gather_reduce(plan, tbl, wT[s:s + MAX_WEIGHT_SETS])
                      for s in range(0, len(weight_sets), MAX_WEIGHT_SETS)])

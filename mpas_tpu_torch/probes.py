@@ -7,11 +7,14 @@
     edgesOnCell_mask through Kernel 3 (ops/windowed.py), Kernel 2
     (ops/gather_reduce.py), a loop of `index_select`s (the study's own
     baseline, `xla_slot_reduce`) and Kernel 3's plain version.
+    `reduce_study` is its one row, on any index table.
   - `gather_probe()` is the counterpart of tools/pallas_gather_probe.py:
     main at its shapes (K=83, C=40962, R=122880, M=10): A and B gather
     columns through Kernel 4 (ops/take_columns.py; the TPU probe's B
     broadcast one index row to all K rows, so its function is A's), and C
     is the fused 10-slot weighted reduce, which is Kernel 2.
+  - `gather_forms(tbl, idx, w)` holds both forms of Kernel 2 against the
+    plain version on one input and times them in turns.
   - `compare_numberings(nl, mesh)` times the step on the default and on the
     ownership-aligned edge numbering in turns, both models on one card.
     `python -m mpas_tpu_torch.probes` runs it at full width (x1.40962, 41
@@ -38,13 +41,31 @@ from .ops import take_columns as tc
 from .ops import windowed as wd
 
 
-def cuda_ms(fn, reps=20, warmup=3):
+L2_FLUSH_BYTES = 256 * 1024 * 1024      # 5x the H100's 50 MB L2
+SPIN_CYCLES = 200_000                   # ~0.1 ms at the H100's 1.98 GHz
+
+
+def cuda_ms(fn, reps=20, warmup=3, cold_l2=False, after_idle=False):
     """Median milliseconds of `fn()` over `reps` runs, timed with CUDA
-    events one run at a time."""
+    events one run at a time. Before each run, outside the timed events,
+    the device is given ~0.1 ms of other work, so that the host has
+    enqueued the run before the first event passes and the time between
+    the events is the device's alone: a spin kernel that touches no
+    memory (the run then finds in the L2 what the run before left there),
+    or, with `cold_l2`, the overwriting of a scratch tensor several times
+    the L2's size (the run then finds none of its inputs in the cache).
+    With `after_idle` there is no such work: the events then also span the
+    host's own time to launch onto an idle device, tens of microseconds."""
+    scratch = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+               if cold_l2 else None)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if scratch is not None:
+            scratch.zero_()
+        elif not after_idle:
+            torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -90,60 +111,123 @@ def csr_weights(idx, w, N):
     return W.to_sparse_csr()
 
 
-def _timer(dev):
-    return cuda_ms if dev.type == "cuda" else (lambda fn: None)
+def csr_same_layout(csr, tbl, S, R):
+    """The library call made to compute the kernels' whole function: the
+    table transposed first and the product brought back to [S, Kt, R]."""
+    Kt = tbl.shape[0]
+    return (torch.sparse.mm(csr, tbl.t().contiguous())
+            .reshape(S, R, Kt).transpose(1, 2).contiguous())
+
+
+def _timer(dev, cold_l2=False):
+    if dev.type != "cuda":
+        return lambda fn: None
+    return lambda fn: cuda_ms(fn, cold_l2=cold_l2)
+
+
+def reduce_study(idx_np, w_np, N, K, device="cuda", seed=0):
+    """One row of the windowed study: a random [K, N] float32 table reduced
+    over idx_np [R, M] with the weights w_np [R, M]. The plan (W, U,
+    blocks, the kernel's level chunk, slices and shared bytes per CTA),
+    Kernel 3 against its plain version (error and its ratio to the
+    round-off bound) and against the index_select loop, Kernel 2 against
+    that loop, and the times of Kernel 3, Kernel 2, the index_select loop,
+    the plain version and the CSR product (`library_ms` with the table
+    transposed beforehand and the result left [R, K];
+    `library_same_layout_ms` with both conversions timed), each kernel
+    also with a cold L2. `bytes` is what the reduction must move (table,
+    idx and w read once, output written once); `staged_bytes` what Kernel
+    3 copies into shared memory."""
+    dev = resolve_device(device)
+    time, time_cold = _timer(dev), _timer(dev, cold_l2=True)
+    idx_np = np.ascontiguousarray(idx_np, np.int32)
+    plan = wd.plan_windows(idx_np)
+    R, M = idx_np.shape
+    idx = torch.from_numpy(idx_np).to(dev)
+    w = torch.from_numpy(np.asarray(w_np, np.float32)).to(dev)[None]  # [1, R, M]
+    wT = wd.pad_weights(plan, w[0], dev)[None]                     # [1, M, Rp]
+    rng = np.random.default_rng(seed)
+    tbl = torch.from_numpy(rng.standard_normal((K, N), np.float32)).to(dev)
+    out3 = wd.windowed_gather_reduce(plan, tbl, wT)[0]
+    ref3 = wd.windowed_reduce_plain(plan, tbl, wT)[0]
+    out2 = gr.gather_reduce(tbl, idx, w)[0]
+    base = gr.gather_reduce_plain(tbl, idx, w)[0]
+    mag = gr.gather_reduce_plain(tbl.abs(), idx, w.abs())[0]
+    kc, smem = wd.level_chunk(plan, K, 1)
+    slices = (wd.level_slices(plan, K, kc, smem, wd.sm_count(dev))
+              if dev.type == "cuda" else None)
+    csr = csr_weights(idx, w, N)
+    tblT = tbl.t().contiguous()
+    k3 = lambda: wd.windowed_gather_reduce(plan, tbl, wT)
+    k2 = lambda: gr.gather_reduce(tbl, idx, w)
+    return dict(
+        Kst=K, R=R, N=N, M=M, W=plan.W, U=plan.U, blocks=plan.nb, Kc=kc,
+        slices=slices, smem_bytes=smem,
+        sectors=gr.index_scatter(idx, 4),
+        max_abs_err=float((out3 - ref3).abs().max()),
+        err_over_bound=roundoff_ratio(out3, ref3, mag, M),
+        err_over_bound_vs_index_select=roundoff_ratio(out3, base, mag, M),
+        gather_reduce_err_over_bound=roundoff_ratio(out2, base, mag, M),
+        max_abs_out=float(base.abs().max()),
+        ms=time(k3), ms_cold_l2=time_cold(k3),
+        gather_reduce_ms=time(k2), gather_reduce_ms_cold_l2=time_cold(k2),
+        index_select_ms=time(lambda: gr.gather_reduce_plain(tbl, idx, w)),
+        plain_ms=time(lambda: wd.windowed_reduce_plain(plan, tbl, wT)),
+        library_ms=time(lambda: torch.sparse.mm(csr, tblT)),
+        library_same_layout_ms=time(lambda: csr_same_layout(csr, tbl, 1, R)),
+        bytes=4 * (K * N + 2 * R * M + K * R),
+        staged_bytes=4 * K * int(plan.ncols.sum()),
+        flops=2 * K * R * M)
 
 
 def windowed_study(mesh, Kst=(48, 168), device="cuda", seed=0):
-    """One row per Kst: the plan (W, blocks, the kernel's level chunk and
-    shared bytes per CTA), Kernel 3 against its plain version (error and
-    its ratio to the round-off bound) and against the index_select loop,
-    Kernel 2 against that loop, and the times of Kernel 3, Kernel 2, the
-    index_select loop, the plain version and the CSR product. `bytes` is
-    what the reduction must move (table, idx and w read once, output
-    written once); `staged_bytes` what Kernel 3 reads into its windows."""
-    dev = resolve_device(device)
-    time = _timer(dev)
-    idx_np = np.asarray(mesh.edgesOnCell, np.int32)
-    w_np = np.asarray(mesh.edgesOnCellSign * mesh.edgesOnCell_mask,
-                      np.float32)
-    plan = wd.plan_windows(idx_np)
-    C, M = idx_np.shape
-    E = mesh.nEdges
-    idx = torch.from_numpy(idx_np).to(dev)
-    w = torch.from_numpy(w_np).to(dev)[None]                       # [1, C, M]
-    wT = wd.pad_weights(plan, w[0], dev)[None]                     # [1, M, Rp]
-    rng = np.random.default_rng(seed)
+    """One `reduce_study` row per Kst on the mesh's edgesOnCell table with
+    the weights edgesOnCellSign * edgesOnCell_mask; C and E name the row's
+    R and N."""
     rows = []
     for K in Kst:
-        tbl = torch.from_numpy(rng.standard_normal((K, E), np.float32)).to(dev)
-        tbl_p = torch.nn.functional.pad(
-            tbl, (0, max(0, plan.min_table_width - E)))
-        out3 = wd.windowed_gather_reduce(plan, tbl_p, wT)[0]
-        ref3 = wd.windowed_reduce_plain(plan, tbl_p, wT)[0]
-        out2 = gr.gather_reduce(tbl, idx, w)[0]
-        base = gr.gather_reduce_plain(tbl, idx, w)[0]
-        mag = gr.gather_reduce_plain(tbl.abs(), idx, w.abs())[0]
-        kc, smem = wd.level_chunk(plan, K, 1)
-        csr = csr_weights(idx, w, E)
-        tblT = tbl.t().contiguous()
-        rows.append(dict(
-            Kst=K, C=C, E=E, M=M, W=plan.W, blocks=plan.nb, Kc=kc,
-            smem_bytes=smem,
-            max_abs_err=float((out3 - ref3).abs().max()),
-            err_over_bound=roundoff_ratio(out3, ref3, mag, M),
-            err_over_bound_vs_index_select=roundoff_ratio(out3, base, mag, M),
-            gather_reduce_err_over_bound=roundoff_ratio(out2, base, mag, M),
-            max_abs_out=float(base.abs().max()),
-            ms=time(lambda: wd.windowed_gather_reduce(plan, tbl_p, wT)),
-            gather_reduce_ms=time(lambda: gr.gather_reduce(tbl, idx, w)),
-            index_select_ms=time(lambda: gr.gather_reduce_plain(tbl, idx, w)),
-            plain_ms=time(lambda: wd.windowed_reduce_plain(plan, tbl_p, wT)),
-            library_ms=time(lambda: torch.sparse.mm(csr, tblT)),
-            bytes=4 * (K * E + 2 * C * M + K * C),
-            staged_bytes=4 * plan.nb * K * plan.W,
-            flops=2 * K * C * M))
+        row = reduce_study(mesh.edgesOnCell,
+                           mesh.edgesOnCellSign * mesh.edgesOnCell_mask,
+                           mesh.nEdges, K, device, seed)
+        rows.append(dict(row, C=row["R"], E=row["N"]))
     return rows
+
+
+def gather_forms(tbl, idx, w):
+    """Both forms of Kernel 2 on one input on the card: each form's largest
+    error over its round-off bound against the plain version, the index
+    table's `index_scatter`, the form `gather_reduce` picks, and the
+    forms' times in turns (direct, rows, rows, direct; the mean of each
+    form's two medians), warm and with a cold L2."""
+    M = idx.shape[1]
+    ref = gr.gather_reduce_plain(tbl, idx, w)
+    mag = gr.gather_reduce_plain(tbl.abs(), idx, w.abs())
+    forms = {"direct": lambda: gr.gather_reduce_direct(tbl, idx, w),
+             "rows": lambda: gr.gather_reduce_rows(tbl, idx, w)}
+    row = {f"{name}_err_over_bound": roundoff_ratio(fn(), ref, mag, M)
+           for name, fn in forms.items()}
+    for key, cold in (("ms", False), ("ms_cold_l2", True)):
+        turns = {"direct": [], "rows": []}
+        for name in ("direct", "rows", "rows", "direct"):
+            turns[name].append(cuda_ms(forms[name], cold_l2=cold))
+        for name, ts in turns.items():
+            row[f"{name}_{key}"] = sum(ts) / len(ts)
+    sectors = gr.index_scatter(idx, tbl.element_size())
+    return dict(row, sectors=sectors,
+                gain=gr.row_form_gain(sectors, tbl.element_size(),
+                                      tbl.shape[1], *idx.shape),
+                picked="rows" if gr.uses_row_form(tbl, idx) else "direct")
+
+
+def mixed_index_table(idx, fraction, N, seed=0):
+    """A copy of the index table idx with `fraction` of its entries, picked
+    at random, replaced by random columns in [0, N): a table between a
+    mesh's own and a random one, for the crossover of Kernel 2's forms."""
+    rng = np.random.default_rng(seed)
+    mixed = idx.cpu().numpy().copy()
+    hit = rng.random(mixed.shape) < fraction
+    mixed[hit] = rng.integers(0, N, int(hit.sum()), dtype=mixed.dtype)
+    return torch.from_numpy(mixed).to(idx.device)
 
 
 def gather_probe_inputs(K=83, C=40962, R=122880, M=10, seed=0):
@@ -161,10 +245,11 @@ def gather_probe(K=83, C=40962, R=122880, M=10, device="cuda", seed=0):
     "outputs": (a, b, c)}; each row holds the error against the reference
     (exact for A and B: index_select for A, the broadcast `torch.gather`
     that is take_along_axis's counterpart for B; the plain version and its
-    round-off bound for C), the kernel's, plain version's and library
-    call's times, and the bytes and operations of the function."""
+    round-off bound for C), the kernel's (warm and with a cold L2), plain
+    version's and library call's times, and the bytes and operations of
+    the function; C also holds `gather_forms` of its input on the card."""
     dev = resolve_device(device)
-    time = _timer(dev)
+    time, time_cold = _timer(dev), _timer(dev, cold_l2=True)
     inp = {k: torch.from_numpy(v).to(dev)
            for k, v in gather_probe_inputs(K, C, R, M, seed).items()}
     tbl, idx, idx_slots, w = (inp["tbl"], inp["idx"], inp["idx_slots"],
@@ -185,6 +270,7 @@ def gather_probe(K=83, C=40962, R=122880, M=10, device="cuda", seed=0):
     plain_ms = time(lambda: tc.take_columns_plain(tbl, idx))
     row_a = dict(K=K, C=C, R=R, max_abs_err=float((a - ref_a).abs().max()),
                  ms=k4_ms, plain_ms=plain_ms,
+                 ms_cold_l2=time_cold(lambda: tc.take_columns(tbl, idx)),
                  library_ms=time(lambda: torch.index_select(tbl, 1, idx)),
                  bytes=take_bytes, flops=0)
     row_b = dict(row_a, max_abs_err=float((b - ref_b).abs().max()),
@@ -194,9 +280,15 @@ def gather_probe(K=83, C=40962, R=122880, M=10, device="cuda", seed=0):
                  max_abs_err=float((c - ref_c).abs().max()),
                  err_over_bound=roundoff_ratio(c, ref_c, mag_c, M),
                  ms=time(lambda: gr.gather_reduce(tbl, idx_slots, w)),
+                 ms_cold_l2=time_cold(
+                     lambda: gr.gather_reduce(tbl, idx_slots, w)),
                  plain_ms=time(lambda: gr.gather_reduce_plain(tbl, idx_slots, w)),
                  library_ms=time(lambda: torch.sparse.mm(csr, tblT)),
+                 library_same_layout_ms=time(
+                     lambda: csr_same_layout(csr, tbl, 1, R)),
                  bytes=4 * (K * C + 2 * R * M + K * R), flops=2 * K * R * M)
+    if dev.type == "cuda":
+        row_c["forms"] = gather_forms(tbl, idx_slots, w)
     return {"A": row_a, "B": row_b, "C": row_c, "outputs": (a, b, c)}
 
 

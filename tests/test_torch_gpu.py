@@ -107,6 +107,83 @@ def test_gather_reduce_kernel_matches_plain(cuda, cpu_model, dtype, S):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("form", ["direct", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("Kt,M,S", [(19, 8, 2), (41, 3, 1), (83, 10, 1),
+                                    (97, 6, 3), (7, 7, 4), (200, 35, 1)])
+def test_gather_reduce_forms_match_plain(cuda, form, dtype, Kt, M, S):
+    """Each form by name at ragged shapes: R not a multiple of the CTA's
+    rows, Kt not a multiple of the level chunk, strided idx rows, slot
+    counts with and without a compile-time kernel, M above a warp."""
+    R, N = 1000 + M, 642
+    rng = np.random.default_rng(Kt + M)
+    idx = torch.from_numpy(rng.integers(0, N, (R, M + 2), dtype=np.int32)
+                           ).to(cuda)[:, 2:]               # strided rows
+    tbl = torch.from_numpy(rng.normal(size=(Kt, N))).to(cuda, dtype)
+    w = torch.from_numpy(rng.normal(size=(S, R, M))).to(cuda, dtype)
+    fn = K2.gather_reduce_direct if form == "direct" else K2.gather_reduce_rows
+    K2.launches = K2.row_form_launches = 0
+    out = fn(tbl, idx, w)
+    ref = K2.gather_reduce_plain(tbl, idx, w)
+    mag = K2.gather_reduce_plain(tbl.abs(), idx, w.abs())
+    torch.cuda.synchronize()
+    assert (K2.launches, K2.row_form_launches) == \
+        ((1, 0) if form == "direct" else (2, 2))
+    eps = torch.finfo(dtype).eps
+    assert bool(((out - ref).abs() <= 4 * (M + 1) * eps * mag).all())
+
+
+@pytest.mark.gpu
+def test_gather_reduce_picks_its_form_from_the_index_table(cuda, cpu_model):
+    mesh = cpu_model.mesh_arrays
+    rng = np.random.default_rng(5)
+    tbl = torch.from_numpy(rng.normal(size=(41, mesh.nEdges))).to(
+        cuda, torch.float32)
+    eoe = mesh.edgesOnEdge.to(cuda)
+    rand = torch.from_numpy(rng.integers(0, mesh.nEdges, tuple(eoe.shape),
+                                         dtype=np.int32)).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(1,) + tuple(eoe.shape))).to(
+        cuda, torch.float32)
+    for idx, row_launches in ((eoe, 0), (rand, 2)):
+        K2.launches = K2.row_form_launches = 0
+        out = K2.gather_reduce(tbl, idx, w)
+        torch.cuda.synchronize()
+        assert K2.row_form_launches == row_launches
+        assert K2.launches == max(1, row_launches)
+        ref = K2.gather_reduce_plain(tbl, idx, w)
+        mag = K2.gather_reduce_plain(tbl.abs(), idx, w.abs())
+        eps = torch.finfo(torch.float32).eps
+        assert bool(((out - ref).abs()
+                     <= 4 * (idx.shape[1] + 1) * eps * mag).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table,K,S", [("edgesOnCell", 41, 1),
+                                       ("edgesOnEdge", 82, 2),
+                                       ("cellsOnEdge", 5, 4)])
+def test_windowed_reduce_kernel_on_an_unrenumbered_mesh(cuda, table, K, S):
+    """Any numbering is legal: a block that names many columns has a long
+    list, and the table is only as wide as the index range."""
+    mesh = generate_mesh(levels=4)
+    idx = np.asarray(getattr(mesh, table), np.int32)
+    plan = K3.plan_windows(idx)
+    rng = np.random.default_rng(K)
+    N = int(idx.max()) + 1
+    assert N < plan.min_table_width or table == "cellsOnEdge"
+    tbl = torch.from_numpy(rng.standard_normal((K, N), np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((S,) + idx.shape, np.float32))
+    wT = torch.stack([K3.pad_weights(plan, x, cuda) for x in w])
+    K3.launches = 0
+    out = K3.windowed_gather_reduce(plan, tbl, wT)
+    ref = K3.windowed_reduce_plain(plan, tbl, wT)
+    mag = K3.windowed_reduce_plain(plan, tbl.abs(), wT.abs())
+    torch.cuda.synchronize()
+    assert K3.launches == 1 and out.shape == (S, K, idx.shape[0])
+    eps = torch.finfo(torch.float32).eps
+    assert bool(((out - ref).abs() <= 4 * (plan.M + 1) * eps * mag).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("table,K,S", [("edgesOnCell", 48, 1),
                                        ("edgesOnCell", 168, 3),
                                        ("cellsOnEdge", 19, 2),
@@ -170,10 +247,11 @@ def test_wrappers_reject_bad_arguments(cuda):
 def test_two_steps_on_the_card_match_the_cpu(cuda, cpu_model):
     gpu = build_model(Namelist(**KW), cpu_model.mesh, device="cuda")
     cpu = build_model(Namelist(**KW), cpu_model.mesh, device="cpu")
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K2.row_form_launches = 0
     gpu.step(2)
     cpu.step(2)
     assert K1.launches == 8 and K2.launches == 54
+    assert K2.row_form_launches == 0
     for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
         assert rel_err(getattr(cpu.state, n), getattr(gpu.state, n).cpu()) < 1e-9
 

@@ -26,6 +26,10 @@ from mpas_tpu.ops import pallas_acoustic as JP
 from mpas_tpu.ops import recover as JR
 from mpas_tpu.ops import stencils as JS
 
+from mpas_tpu_torch import probes
+from mpas_tpu_torch.config import Namelist as TNamelist
+from mpas_tpu_torch.dynamics.model import build_model as t_build
+from mpas_tpu_torch.mesh.generator import generate_mesh as t_generate
 from mpas_tpu_torch.ops import acoustic as TA
 from mpas_tpu_torch.ops import acoustic_column as K1
 from mpas_tpu_torch.ops import gather_reduce as K2
@@ -172,3 +176,132 @@ def test_gather_reduce_rejects_other_devices():
         K2.gather_reduce(tbl, torch.zeros((3, 2), dtype=torch.int32,
                                           device="meta"),
                          torch.zeros((1, 3, 2), device="meta"))
+
+
+# ---- which form of Kernel 2 runs: the scatter statistic and its cache ----
+
+MESH_TABLES = ("edgesOnCell", "edgesOnVertex", "edgesOnEdge", "cellsOnEdge")
+
+
+@pytest.fixture(scope="module")
+def mesh4():
+    return t_generate(levels=4)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("table", MESH_TABLES)
+def test_scatter_statistic_is_low_on_a_mesh(mesh4, table, itemsize):
+    idx = np.asarray(getattr(mesh4, table), np.int32)
+    N = mesh4.nCells if table == "cellsOnEdge" else mesh4.nEdges
+    s = K2.scatter_sectors(idx, itemsize)
+    assert 1.0 / idx.shape[1] <= s < 16.0
+    assert K2.row_form_gain(s, itemsize, N, *idx.shape) < K2.ROW_FORM_MIN_GAIN
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_scatter_statistic_is_near_32_at_random_indices(itemsize):
+    inp = probes.gather_probe_inputs(K=2, C=40962, R=4096, M=10, seed=1)
+    s = K2.scatter_sectors(inp["idx_slots"], itemsize)
+    assert 30.0 < s <= 32.0
+    # at the probe's own shape (R = 122880 rows share the transpose)
+    assert K2.row_form_gain(s, itemsize, 40962, 122880, 10) > \
+        K2.ROW_FORM_MIN_GAIN
+
+
+def test_scatter_statistic_counts_sectors_of_a_warps_tile():
+    # 32 rows x 2 slots, all in one float32 sector: 1 sector over 2 slots
+    assert K2.scatter_sectors(np.zeros((32, 2), np.int32), 4) == 0.5
+    # every reference 8 columns from the next: one sector each
+    idx = (np.arange(64, dtype=np.int32) * 8).reshape(32, 2)
+    assert K2.scatter_sectors(idx, 4) == 32.0
+    assert K2.scatter_sectors(idx, 8) == 32.0
+    # adjacent columns: 64 references in 8 float32 or 16 float64 sectors;
+    # a short last warp counts with the rows it has
+    idx = np.arange(64, dtype=np.int32).reshape(32, 2)
+    assert K2.scatter_sectors(idx, 4) == 4.0
+    assert K2.scatter_sectors(idx, 8) == 8.0
+    assert K2.scatter_sectors(np.concatenate([idx, idx[:3]]), 4) == \
+        (4.0 + 0.5) / 2
+
+
+def test_index_scatter_is_cached_per_table(monkeypatch):
+    calls = []
+    real = K2.scatter_sectors
+    monkeypatch.setattr(K2, "scatter_sectors",
+                        lambda a, size: calls.append(a.shape) or real(a, size))
+    monkeypatch.setattr(K2, "_scatter_cache", {})
+    rng = np.random.default_rng(0)
+    base = torch.from_numpy(rng.integers(0, 5000, (640, 10), dtype=np.int32))
+    v = K2.index_scatter(base, 4)
+    assert K2.index_scatter(base, 4) == v and len(calls) == 1
+    # a view of other columns is another table; the same view again is not
+    tail = K2.index_scatter(base[:, 2:], 4)
+    assert K2.index_scatter(base[:, 2:], 4) == tail and len(calls) == 2
+    assert calls[-1] == (640, 8)
+    # another element size is another statistic
+    K2.index_scatter(base, 8)
+    assert len(calls) == 3
+    # an in-place write is seen
+    base[:, 0] = 0
+    assert K2.index_scatter(base, 4) != v and len(calls) == 4
+    # the cache stays small and keeps its tables alive (no address reuse)
+    for i in range(K2.SCATTER_CACHE_SIZE + 3):
+        K2.index_scatter(torch.zeros((32, 1), dtype=torch.int32), 4)
+    assert len(K2._scatter_cache) == K2.SCATTER_CACHE_SIZE
+    assert all(hit[0].data_ptr() == key[1]
+               for key, hit in K2._scatter_cache.items())
+
+
+@pytest.mark.parametrize("orient", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_every_table_of_the_step_takes_the_direct_form(orient, dtype):
+    """MeshArrays holds the statistic of each index table the step's
+    reductions read, and none of them is sent to the row-read form; a random
+    table of the same shape is."""
+    nl = TNamelist(config_nvertlevels=8, config_ztop=30000.0, dtype=dtype,
+                   config_jw_u_perturbation=1.0, config_orient_edges=orient)
+    m = t_build(nl, t_generate(levels=3, lloyd_iterations=2),
+                device="cpu").mesh_arrays
+    size = m.edgesOnCell_mask.element_size()
+    tables = {"edgesOnCell": (m.edgesOnCell, m.nEdges),
+              "edgesOnVertex": (m.edgesOnVertex, m.nEdges),
+              "edgesOnEdge": (m.edgesOnEdge, m.nEdges),
+              "advCellsForEdge[:, 2:]": (m.advCellsForEdge[:, 2:], m.nCells)}
+    if orient:
+        tables["eoc_split.idx"] = (m.eoc_split.idx, m.nEdges)
+    assert set(m.gather_sectors) == set(tables)
+    for name, (idx, N) in tables.items():
+        tbl = torch.zeros((16, N), dtype=m.edgesOnCell_mask.dtype)
+        assert m.gather_sectors[name] == K2.index_scatter(idx, size), name
+        assert not K2.uses_row_form(tbl, idx), name
+    rng = np.random.default_rng(2)
+    rand = torch.from_numpy(rng.integers(0, m.nEdges, (m.nEdges, 10),
+                                         dtype=np.int32))
+    tbl = torch.zeros((16, m.nEdges), dtype=m.edgesOnCell_mask.dtype)
+    assert K2.uses_row_form(tbl, rand)
+    # a table with less than a sector's worth of levels stays direct
+    assert not K2.uses_row_form(tbl[:32 // size - 1], rand)
+
+
+@pytest.mark.parametrize("Kt,dtype,Ktp", [
+    (83, torch.float32, 88), (82, torch.float32, 88), (8, torch.float32, 8),
+    (1, torch.float32, 8), (83, torch.float64, 84), (41, torch.float64, 44),
+    (4, torch.float64, 4)])
+def test_transposed_scratch_rows_start_on_sector_boundaries(Kt, dtype, Ktp):
+    tbl = torch.zeros((Kt, 37), dtype=dtype)
+    assert K2.padded_levels(Kt, tbl.element_size()) == Ktp
+    scratch = K2.transposed_scratch(tbl)
+    assert scratch.shape == (37, Ktp) and scratch.dtype == dtype
+    assert scratch.is_contiguous()
+    assert (Ktp * tbl.element_size()) % K2.SECTOR_BYTES == 0
+
+
+def test_named_forms_refuse_cpu_tensors():
+    """Only `gather_reduce` takes the plain version, and only for tensors
+    on the CPU; the two forms are kernels."""
+    tbl = torch.zeros((2, 5))
+    idx = torch.zeros((3, 2), dtype=torch.int32)
+    w = torch.zeros((1, 3, 2))
+    for form in (K2.gather_reduce_direct, K2.gather_reduce_rows):
+        with pytest.raises(ValueError, match="unsupported device"):
+            form(tbl, idx, w)

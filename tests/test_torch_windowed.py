@@ -3,7 +3,9 @@
 wrapper runs its plain version:
 
   - `plan_windows` gives tools.windowed_kernels' plan, array for array, and
-    its cache returns the same object for the same index table;
+    its cache returns the same object for the same index table; its column
+    plan (what the CUDA kernel stages) names every reference, on the
+    renumbered and on the unrenumbered mesh;
   - `slot_reduce_windowed` and `edge_pairs_windowed` match
     tools.windowed_kernels run with interpret=True on
     renumber_mesh(generate_mesh(levels=4)) at 1e-6 of the largest magnitude
@@ -29,6 +31,7 @@ from mpas_tpu_torch import probes
 from mpas_tpu_torch.config import Namelist
 from mpas_tpu_torch.mesh.generator import generate_mesh as t_generate
 from mpas_tpu_torch.mesh.renumber import renumber_mesh as t_renumber
+from mpas_tpu_torch.ops import gather_reduce as K2
 from mpas_tpu_torch.ops import take_columns as K4
 from mpas_tpu_torch.ops import windowed as K3
 
@@ -61,6 +64,55 @@ def test_plan_cache_and_bounds(rmesh):
     assert K3.plan_windows(eoc[::-1].copy()) is not p1
     assert p1.W < rmesh.nEdges // 8          # renumbering made windows narrow
     assert p1.idx_localT.min() >= 0 and p1.idx_localT.max() < p1.W
+
+
+@pytest.fixture(scope="module")
+def meshes(rmesh):
+    return {"renumbered": rmesh, "default": j_generate(levels=4)}
+
+
+@pytest.mark.parametrize("numbering", ["renumbered", "default"])
+@pytest.mark.parametrize("table", ["edgesOnCell", "cellsOnEdge",
+                                   "edgesOnEdge"])
+def test_column_plan_names_every_reference(meshes, numbering, table):
+    idx = np.asarray(getattr(meshes[numbering], table), np.int32)
+    p = K3.plan_windows(idx)
+    R, M = idx.shape
+    assert p.cols.shape == (p.nb, p.U) and p.idx_colsT.shape == (M, p.Rp)
+    assert p.U % 32 == 0 and p.U <= 128 * M
+    assert p.ncols.min() >= 1 and p.ncols.max() <= p.U < p.ncols.max() + 32
+    for b in range(p.nb):
+        n = p.ncols[b]
+        assert np.all(np.diff(p.cols[b, :n]) > 0)           # sorted, distinct
+        assert np.all(p.cols[b, n:] == p.cols[b, n - 1])    # padding
+    assert p.idx_colsT.min() >= 0
+    assert np.all(p.idx_colsT < np.repeat(p.ncols, 128)[None, :])
+    block_of = np.arange(R) // 128
+    assert np.array_equal(p.cols[block_of[None, :], p.idx_colsT[:, :R]],
+                          idx.T)
+    assert p.max_index == idx.max()
+    if numbering == "renumbered":
+        # only the columns a block reads: far fewer than its window holds
+        assert p.U < p.W or table == "cellsOnEdge"
+
+
+@pytest.mark.parametrize("numbering", ["renumbered", "default"])
+@pytest.mark.parametrize("table", ["edgesOnCell", "cellsOnEdge",
+                                   "edgesOnEdge"])
+def test_plain_version_equals_gather_reduce_plain(meshes, numbering, table):
+    """The plain version reads through the column plan and needs no table
+    wider than the largest index; it gives gather_reduce_plain's result bit
+    for bit (same gathers, same order of summation)."""
+    idx = np.asarray(getattr(meshes[numbering], table), np.int32)
+    p = K3.plan_windows(idx)
+    rng = np.random.default_rng(4)
+    tbl = torch.from_numpy(rng.standard_normal((5, int(idx.max()) + 1),
+                                               np.float32))
+    w = torch.from_numpy(rng.standard_normal((2,) + idx.shape, np.float32))
+    wT = torch.stack([K3.pad_weights(p, x) for x in w])
+    got = K3.windowed_gather_reduce(p, tbl, wT)
+    assert torch.equal(got, K2.gather_reduce_plain(tbl, torch.from_numpy(idx),
+                                                   w))
 
 
 def test_slot_reduce_matches(rmesh):
@@ -127,6 +179,47 @@ def test_level_chunk():
     kc, smem = K3.level_chunk(plan, 168, 1)
     assert kc >= 1 and smem <= K3.SMEM_TARGET
     assert -(-168 // kc) * kc >= 168
+
+
+@pytest.mark.parametrize("M,U", [(4, 512), (10, 1280)])
+@pytest.mark.parametrize("Kin,S", [(48, 1), (168, 4), (3, 2)])
+def test_level_chunk_ring_fits(M, U, Kin, S):
+    """A block of 128 rows whose references are all distinct: U = 128 M.
+    The ring of two stages, the column list and the index and weight tiles
+    fit in the shared memory a block may have, in SMEM_TARGET where two
+    stages of one level do."""
+    plan = K3.plan_windows(np.arange(128 * M, dtype=np.int32).reshape(128, M))
+    assert plan.U == U and plan.ncols.tolist() == [U]
+    kc, smem = K3.level_chunk(plan, Kin, S)
+    extra = 4 * (U + 128 * M * (1 + S))
+    assert 1 <= kc <= Kin and smem == 8 * kc * U + extra <= K3.SMEM_MAX
+    if 8 * U + extra <= K3.SMEM_TARGET:
+        assert smem <= K3.SMEM_TARGET
+    slices = K3.level_slices(plan, Kin, kc, smem, n_sm=132)
+    assert 1 <= slices <= -(-Kin // kc)
+
+
+def test_level_chunk_refuses_a_list_too_long_for_shared_memory():
+    plan = K3.plan_windows(np.arange(128 * 240, dtype=np.int32
+                                     ).reshape(128, 240))
+    with pytest.raises(ValueError, match="shared memory"):
+        K3.level_chunk(plan, 8, 1)
+
+
+def test_table_needs_no_padding_to_the_window(rmesh):
+    """A table as wide as the index range is enough, though the plan's
+    window (a TPU need) would overrun it."""
+    eoc = np.asarray(rmesh.edgesOnCell, np.int32)
+    plan = K3.plan_windows(eoc)
+    assert plan.min_table_width > rmesh.nEdges
+    rng = np.random.default_rng(6)
+    f = torch.from_numpy(rng.standard_normal((4, rmesh.nEdges), np.float32))
+    w = torch.from_numpy(rng.standard_normal(eoc.shape, np.float32))
+    (out,) = K3.windowed_reduce(plan, [f], [w], [(0, 0)])
+    ref = K2.gather_reduce_plain(f, torch.from_numpy(eoc), w[None])[0]
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="columns"):
+        K3.windowed_reduce(plan, [f[:, :-1]], [w], [(0, 0)])
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
