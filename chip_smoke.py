@@ -13,7 +13,12 @@ Phases, each printing one JSON line:
   2. build: compile csrc/*.cu (one nvcc per object, in parallel), with each
      kernel's registers, static shared memory and spills from ptxas -v;
   3. acoustic_column: Kernel 1 against its plain version on the inputs of
-     the step's first call, in float32 and (inputs widened) float64;
+     the step's first call, in float32 and (inputs widened) float64, with
+     its tile (columns, level lanes, shared-memory bytes, CTAs an SM) and
+     other tiles timed in turns; acoustic_column_shapes: the kernel against
+     its plain version at small synthetic shapes (probes.acoustic_inputs),
+     down to one level and one column and up to the most levels a tile
+     holds, with and without the tendency arguments;
   4. gather_reduce: Kernel 2 against its plain version at every distinct
      call shape of one step: the form the wrapper picks, and both forms by
      name, in float32 and (inputs widened) float64; its times on a busy
@@ -37,7 +42,12 @@ Phases, each printing one JSON line:
      edgesOnEdge reduction (82 levels) on the default and aligned numbering;
  10. gather_probe: Kernel 4 (column gather, the probe's A and B) and
      Kernel 2 (its C, both forms) at K=83, C=40962, R=122880, M=10
-     (probes.gather_probe).
+     (probes.gather_probe); take_forms: both forms of Kernel 4 and
+     `index_select` in turns at the probe's random indices and at
+     cellsOnEdge[:, 0] with a share of random entries;
+ 11. take_columns_step: Kernel 4 beside `index_select` at every distinct
+     gather of `stencils.take_packed` and `edge_pair*` in one step, on both
+     numberings: whether Kernel 4 behind `take_packed` would pay.
 
 Every timed phase carries the card's SM clock, its maximum, temperature and
 power draw read before and after it (`smi_before`, `smi_after`). Then a
@@ -57,7 +67,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core float32, data sheet
               "float64": 34e12}    # non-tensor-core float64, data sheet
 # floating-point operations per column and level of the acoustic column
-# kernel, counted from csrc/acoustic_column.cu (forward ~41, backward ~23)
+# kernel, counted from csrc/acoustic_column.cu (rs/ts and the right-hand side
+# ~37, the two sweeps 4, damping, wwAvg and recovery ~23)
 ACOUSTIC_FLOPS_PER_POINT = 64
 MAIN_STEPS = 10
 PROFILE_STEPS = 3
@@ -65,6 +76,14 @@ PROFILE_TOP = 15
 K1_F32_REL = 1e-4     # float32 kernel vs plain, relative to max |plain|
 K1_F64_REL = 1e-12    # float64 bound of tests/test_pallas.py
 AGREE_REL = 1e-9      # float64 card vs CPU after 2 steps, per field
+# Kernel 1 at synthetic shapes: levels x columns, and (tile columns, level
+# lanes) forced on one ragged shape beside the wrapper's own choice
+K1_SHAPE_LEVELS = (1, 2, 3, 41, 64)
+K1_SHAPE_COLUMNS = (1, 31, 33, 1000)
+K1_FORCED_TILES = ((4, 64), (8, 3), (16, 16), (32, 1), (32, 16))
+# tiles timed in turns beside the wrapper's choice at the step's shape
+K1_TIMED_TILES = ((32, 8), (32, 14), (16, 14), (16, 21), (8, 21), (8, 42))
+TAKE_MIXED_FRACTIONS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
 
 
 def emit(obj):
@@ -151,12 +170,15 @@ def bound(nb, flops, dtype_name):
 
 
 def record_step(model):
-    """Run one step with both wrappers wrapped, keeping the arguments of the
-    first acoustic column call and of the first gather-reduce call of each
-    shape (Kt, N, R, M, S), and the number of calls per shape."""
+    """Run one step with both wrappers and `stencils.gather` wrapped,
+    keeping the arguments of the first acoustic column call, of the first
+    gather-reduce call of each shape (Kt, N, R, M, S) and of the first
+    gather of each (Kt, N, R, index vector), and the number of calls of
+    each."""
     from mpas_tpu_torch.ops import acoustic, stencils
-    k1_args, k2_calls = [], {}
+    k1_args, k2_calls, gathers = [], {}, {}
     k1_orig, k2_orig = acoustic.acoustic_column_update, stencils.gather_reduce
+    gather_orig = stencils.gather
 
     def k1(*args):
         if not k1_args:
@@ -170,12 +192,21 @@ def record_step(model):
         hit["calls"] += 1
         return k2_orig(tbl, idx, w)
 
+    def gather(f, idx):
+        key = (f.shape[0], f.shape[1], idx.shape[0], idx.data_ptr(),
+               idx.stride(0))
+        hit = gathers.setdefault(key, {"calls": 0, "args": (f, idx)})
+        hit["calls"] += 1
+        return gather_orig(f, idx)
+
     acoustic.acoustic_column_update, stencils.gather_reduce = k1, k2
+    stencils.gather = gather
     try:
         model.step(1)
     finally:
         acoustic.acoustic_column_update, stencils.gather_reduce = k1_orig, k2_orig
-    return k1_args[0], k2_calls
+        stencils.gather = gather_orig
+    return k1_args[0], k2_calls, gathers
 
 
 def check_acoustic(args, torch):
@@ -201,7 +232,7 @@ def check_acoustic(args, torch):
         limit = K1_F32_REL if name == "float32" else K1_F64_REL
         if not all(bool(torch.isfinite(o).all()) for o in out_k):
             raise RuntimeError(f"acoustic_column {name}: non-finite output")
-        if rel > limit:
+        if not rel <= limit:
             raise RuntimeError(f"acoustic_column {name}: rel err {rel} > {limit}")
         rs0 = a[0]
         K, C = rs0.shape
@@ -215,12 +246,193 @@ def check_acoustic(args, torch):
         k1 = lambda: ac.acoustic_column_update(*a)
         ms = cuda_ms(k1)
         plain_ms = cuda_ms(lambda: ac.acoustic_column_update_plain(*a), reps=20)
+        tile, lanes, smem = ac.tile_plan(K, rs0.element_size())
+        # what the card takes to move as many bytes with a plain copy (half
+        # read, half written): the bound is the data sheet's rate, this is
+        # the rate a copy reaches
+        half = torch.empty(nb // 2, dtype=torch.uint8, device=rs0.device)
+        dest = torch.empty_like(half)
+        copy_ms = cuda_ms(lambda: dest.copy_(half))
+        del half, dest
+        # other tiles beside the wrapper's, in turns (there and back)
+        tiles = {}
+        for t, l in K1_TIMED_TILES + K1_TIMED_TILES[::-1]:
+            out_t = ac.acoustic_column_update(*a, tile=t, lanes=l)
+            if not all(torch.equal(x, y) for x, y in zip(out_t, out_k)):
+                raise RuntimeError(f"acoustic_column {name}: tile {t}x{l} "
+                                   "differs from the wrapper's tile")
+            tiles.setdefault(f"{t}x{l}", []).append(cuda_ms(
+                lambda: ac.acoustic_column_update(*a, tile=t, lanes=l)))
         res[name] = dict(K=K, C=C, max_abs_err=err, max_rel_err=rel,
                          limit_rel=limit, ms=ms, plain_ms=plain_ms,
                          ms_cold_l2=cuda_ms(k1, cold_l2=True),
                          ms_after_idle=cuda_ms(k1, after_idle=True),
-                         bytes=nb, bound_ms=b_ms, bound_by=b_by)
+                         bytes=nb, bound_ms=b_ms, bound_by=b_by,
+                         copy_same_bytes_ms=copy_ms, tile_columns=tile, level_lanes=lanes,
+                         smem_bytes=smem,
+                         ctas_per_sm=ac.resident_ctas(K, rs0.dtype),
+                         tiles_ms={k: sum(v) / len(v)
+                                   for k, v in tiles.items()},
+                         tiles_ctas_per_sm={
+                             f"{t}x{l}": ac.resident_ctas(K, rs0.dtype, t, l)
+                             for t, l in K1_TIMED_TILES})
     return res
+
+
+def check_acoustic_shapes(torch):
+    """Kernel 1 against its plain version at synthetic shapes: every K of
+    K1_SHAPE_LEVELS x every C of K1_SHAPE_COLUMNS, float32 and float64,
+    with tend_rho/tend_rt given and None; the forced tiles of
+    K1_FORCED_TILES on a ragged shape; and the most levels a tile holds in
+    float64. Raises where an output is not finite or over its limit."""
+    from mpas_tpu_torch import probes
+    from mpas_tpu_torch.ops import acoustic_column as ac
+    worst = {"float32": (0.0, None), "float64": (0.0, None)}
+    cases = 0
+
+    def hold(K, C, dtype, tend, tile=None, lanes=None):
+        nonlocal cases
+        name = str(dtype).replace("torch.", "")
+        a = probes.acoustic_args(probes.acoustic_inputs(K, C, seed=K + C),
+                                 "cuda", dtype, tend)
+        out_k = ac.acoustic_column_update(*a, tile=tile, lanes=lanes)
+        out_p = ac.acoustic_column_update_plain(*a)
+        torch.cuda.synchronize()
+        limit = K1_F32_REL if dtype == torch.float32 else K1_F64_REL
+        what = dict(K=K, C=C, dtype=name, tendencies=tend,
+                    tile=ac.tile_plan(K, a[0].element_size(), tile, lanes))
+        for k, p in zip(out_k, out_p):
+            if k.shape != p.shape or not bool(torch.isfinite(k).all()):
+                raise RuntimeError(f"acoustic_column_shapes {what}: shape or "
+                                   "non-finite output")
+            rel = float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+            if not rel <= limit:
+                raise RuntimeError(f"acoustic_column_shapes {what}: rel err "
+                                   f"{rel} > {limit}")
+            if rel > worst[name][0]:
+                worst[name] = (rel, what)
+        cases += 1
+
+    for dtype in (torch.float32, torch.float64):
+        for K in K1_SHAPE_LEVELS:
+            for C in K1_SHAPE_COLUMNS:
+                for tend in (True, False):
+                    hold(K, C, dtype, tend)
+        for tile, lanes in K1_FORCED_TILES:
+            hold(41, 1000, dtype, False, tile, lanes)
+            hold(5, 33, dtype, True, tile, lanes)
+    k_max = ac.max_levels(8)
+    hold(k_max, 33, torch.float64, True)
+    hold(ac.max_levels(4), 33, torch.float32, False)
+    try:
+        ac.tile_plan(k_max + 1, 8)
+    except ac.ColumnTileError:
+        pass
+    else:
+        raise RuntimeError("acoustic_column_shapes: no error beyond the "
+                           "most levels a tile holds")
+    return dict(cases=cases, levels=list(K1_SHAPE_LEVELS),
+                columns=list(K1_SHAPE_COLUMNS),
+                forced_tiles=[list(t) for t in K1_FORCED_TILES],
+                max_levels_float64=k_max, max_levels_float32=ac.max_levels(4),
+                limit_rel={"float32": K1_F32_REL, "float64": K1_F64_REL},
+                worst_rel={k: v[0] for k, v in worst.items()},
+                worst_case={k: v[1] for k, v in worst.items()})
+
+
+def index_vector_names(mesh_arrays):
+    """{(address, stride): name} of the index vectors `take_packed` and
+    `edge_pair*` gather through."""
+    names = {}
+    for table in ("cellsOnEdge", "verticesOnEdge"):
+        t = getattr(mesh_arrays, table)
+        for j in range(t.shape[1]):
+            names[(t[:, j].data_ptr(), t.stride(0))] = f"{table}[:, {j}]"
+    return names
+
+
+def check_take_columns_step(gathers, names, numbering, torch):
+    """Kernel 4 (the form it picks) beside `torch.index_select` at every
+    distinct gather of one step, in turns: exact equality, times, bound,
+    calls per step, and whether Kernel 4 would pay there (`gate`)."""
+    from mpas_tpu_torch.ops import take_columns as tc
+    from mpas_tpu_torch.probes import cuda_ms
+    rows = []
+    for (Kt, N, R, ptr, stride), hit in gathers.items():
+        tbl, idx = hit["args"]
+        tbl = tbl.contiguous()
+        ref = torch.index_select(tbl, 1, idx)
+        out = tc.take_columns(tbl, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"take_columns_step {numbering} "
+                               f"{(Kt, N, R)}: differs from index_select")
+        k4 = lambda: tc.take_columns(tbl, idx)
+        lib = lambda: torch.index_select(tbl, 1, idx)
+        ms, lib_ms = [], []
+        for fn, ts in ((k4, ms), (lib, lib_ms), (lib, lib_ms), (k4, ms)):
+            ts.append(cuda_ms(fn))
+        ms, lib_ms = sum(ms) / 2, sum(lib_ms) / 2
+        nb = nbytes(tbl, ref) + R * 4
+        b_ms, b_by = bound(nb, 0, str(tbl.dtype).replace("torch.", ""))
+        rows.append(dict(
+            numbering=numbering, Kt=Kt, N=N, R=R,
+            index=names.get((ptr, stride), "other"), idx_stride=stride,
+            calls_per_step=hit["calls"], gain=tc.index_gain(tbl, idx),
+            form="rows" if tc.uses_row_form(tbl, idx) else "direct",
+            exact=True, ms=ms, library_ms=lib_ms, ms_over_library=ms / lib_ms,
+            bytes=nb, bound_ms=b_ms, bound_by=b_by,
+            gate="open" if ms < lib_ms else "shut"))
+    return rows
+
+
+def emit_take_columns_step(gathers, names, numbering, torch):
+    rows = check_take_columns_step(gathers, names, numbering, torch)
+    for row in rows:
+        emit({"phase": "take_columns_step", **row})
+    if any(r["form"] != "direct" for r in rows):
+        raise RuntimeError(f"take_columns_step {numbering}: an index vector "
+                           "of the step left the direct form")
+    calls = sum(r["calls_per_step"] for r in rows)
+    emit({"phase": "take_columns_step_sum", "numbering": numbering,
+          "gathers_per_step": calls, "distinct": len(rows),
+          "kernel4_ms_per_step": sum(r["ms"] * r["calls_per_step"]
+                                     for r in rows),
+          "index_select_ms_per_step": sum(r["library_ms"] * r["calls_per_step"]
+                                          for r in rows),
+          "open": sum(r["gate"] == "open" for r in rows),
+          "shut": sum(r["gate"] == "shut" for r in rows)})
+    return rows
+
+
+def emit_take_forms(mesh, torch):
+    """Both forms of Kernel 4 and `index_select` in turns on the probe's
+    table: at its random indices (float32, and the table widened to
+    float64), and at cellsOnEdge[:, 0] of the full-width mesh with a share
+    of random entries: the measurements that
+    `take_columns.ROW_FORM_MIN_GAIN` rests on. Returns {case: row}."""
+    import numpy as np
+    from mpas_tpu_torch import probes
+    inp = probes.gather_probe_inputs()
+    tbl = torch.from_numpy(inp["tbl"]).cuda()
+    coe0 = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(mesh.cellsOnEdge)[:, 0], np.int32)).cuda()
+    cases = {"random": torch.from_numpy(inp["idx"]).cuda()}
+    for f in TAKE_MIXED_FRACTIONS:
+        cases[f"cellsOnEdge0_random_fraction_{f}"] = (
+            probes.mixed_index_table(coe0, f, tbl.shape[1]) if f else coe0)
+    rows = {}
+    for what, idx in list(cases.items()) + [("random_float64",
+                                             cases["random"])]:
+        res = probes.take_forms(
+            tbl.double() if what == "random_float64" else tbl, idx)
+        emit({"phase": "take_forms", "case": what,
+              "shape": [tbl.shape[0], tbl.shape[1], idx.shape[0]], **res})
+        if not (res["direct_exact"] and res["rows_exact"]):
+            raise RuntimeError(f"take_forms {what}: a form of Kernel 4 "
+                               "differs from index_select")
+        rows[what] = res
+    return rows
 
 
 def check_gather_reduce(calls, torch):
@@ -428,18 +640,21 @@ def main():
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     setup.update(model.setup_seconds)
-    k1_args, k2_calls = record_step(model)
+    k1_args, k2_calls, gathers = record_step(model)
     torch.cuda.synchronize()
 
     # 3. Kernel 1
     k1 = timed(lambda: check_acoustic(k1_args, torch))
     emit({"phase": "acoustic_column", **k1})
+    emit({"phase": "acoustic_column_shapes", **check_acoustic_shapes(torch)})
 
     # 4. Kernel 2
     k2 = check_gather_reduce(k2_calls, torch)
     for row in k2:
         emit({"phase": "gather_reduce", **row})
     forms = {"default": emit_gather_forms(k2_calls, "default")}
+    take_step = emit_take_columns_step(
+        gathers, index_vector_names(model.mesh_arrays), "default", torch)
 
     # 5. the main path: 10 full-width steps, counted
     main = timed(lambda: counted_steps(model, torch))
@@ -453,7 +668,7 @@ def main():
     emit({"phase": "profile",
           **timed(lambda: profile_steps(model, PROFILE_STEPS, torch))})
     shapes_seen = set(k2_calls)
-    del model, k1_args, k2_calls
+    del model, k1_args, k2_calls, gathers
     torch.cuda.empty_cache()
 
     # 7. the JAX bench's setting: edges aligned to their owner cells
@@ -462,13 +677,15 @@ def main():
     model = build_model(nl_o, mesh, device="cuda")
     torch.cuda.synchronize()
     setup_o = time.perf_counter() - t0
-    _, calls = record_step(model)
+    _, calls, gathers = record_step(model)
     new_calls = {k: v for k, v in calls.items() if k not in shapes_seen}
     k2_orient = check_gather_reduce(new_calls, torch)
     for row in k2_orient:
         emit({"phase": "gather_reduce_orient", **row})
     forms["aligned"] = emit_gather_forms(calls, "aligned")
-    del calls, new_calls
+    take_step += emit_take_columns_step(
+        gathers, index_vector_names(model.mesh_arrays), "aligned", torch)
+    del calls, new_calls, gathers
     orient = timed(lambda: counted_steps(model, torch))
     prof = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
     emit({"phase": "main_path_orient", "cells": model.mesh.nCells,
@@ -522,9 +739,10 @@ def main():
                                "its round-off bound")
 
     # 10. the gather probe: Kernel 4 (A, B) and Kernel 2 (C)
-    take_columns.launches = 0
+    take_columns.launches = take_columns.row_form_launches = 0
     probe = timed(probes.gather_probe)
     k4_launches = take_columns.launches
+    k4_row_launches = take_columns.row_form_launches
     for key in "ABC":
         row = probe[key]
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"],
@@ -542,6 +760,7 @@ def main():
     if k4_launches <= 0:
         raise RuntimeError("gather_probe never launched Kernel 4")
     del probe["outputs"]
+    take_forms = emit_take_forms(mesh, torch)
 
     big = max(k2, key=lambda r: r["Kt"] * r["R"] * r["M"])
     k3 = max(study["rows"], key=lambda r: r["Kst"])
@@ -560,7 +779,16 @@ def main():
          "plain_ms": k1["float32"]["plain_ms"],
          "bound_ms": k1["float32"]["bound_ms"],
          "bound_by": k1["float32"]["bound_by"], "library_ms": None,
-         "shape": [k1["float32"]["K"], k1["float32"]["C"]]},
+         "shape": [k1["float32"]["K"], k1["float32"]["C"]],
+         "form": "column tile",
+         **{k: k1["float32"][k] for k in
+            ("tile_columns", "level_lanes", "smem_bytes", "ctas_per_sm",
+             "tiles_ms", "copy_same_bytes_ms")},
+         "float64": {k: k1["float64"][k] for k in
+                     ("ms", "ms_cold_l2", "bound_ms", "plain_ms",
+                      "max_rel_err", "tile_columns", "level_lanes",
+                      "smem_bytes", "ctas_per_sm", "tiles_ms",
+                      "copy_same_bytes_ms")}},
         {"name": "gather_reduce", "route": "cuda",
          "source": "mpas_tpu_torch/csrc/gather_reduce.cu",
          "replaces": "tools/windowed_kernels.py:160",
@@ -598,7 +826,10 @@ def main():
          "source": "mpas_tpu_torch/csrc/take_columns.cu",
          "replaces": "tools/pallas_gather_probe.py:55",
          "also_replaces": ["tools/pallas_gather_probe.py:82"],
-         "launches": k4_launches,
+         "launches": k4_launches, "row_form_launches": k4_row_launches,
+         "form": a["form"], "forms": take_forms,
+         "step_gate": {"open": sum(r["gate"] == "open" for r in take_step),
+                       "shut": sum(r["gate"] == "shut" for r in take_step)},
          "max_abs_err": max(a["max_abs_err"], probe["B"]["max_abs_err"]),
          "ms": a["ms"], "ms_cold_l2": a["ms_cold_l2"],
          "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],

@@ -43,7 +43,8 @@
 // in flight together; the gathered value feeds all S accumulators. Stores
 // are 32 adjacent words a warp.
 //
-// The row-read form (`transpose_table_*` then `gather_reduce_rows_*`), for
+// The row-read form (`transpose_table_*` then `gather_reduce_rows_*`; the
+// kernels are in row_read.cuh, which the column gather shares), for
 // index tables that scatter. A tiled transpose writes tblT [N, Ktp] (Ktp =
 // Kt rounded up to a 32-byte multiple). In the reduction a warp owns a row
 // r at a time and its lanes run along the levels, so each reference reads
@@ -58,9 +59,11 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
+#include "row_read.cuh"
+
 namespace {
 
-constexpr int MAX_SMEM = 232448;  // 227 KB, Hopper's per-block limit
+using namespace row_read;
 
 // ---- direct form ----------------------------------------------------------
 
@@ -166,16 +169,6 @@ direct_kernel(const T* __restrict__ tbl, const int* __restrict__ idx,
   }
 }
 
-// Dynamic shared memory above 48 KB needs the opt-in, once per instantiation.
-template <typename K>
-cudaError_t opt_in(K kernel, int smem, bool* done) {
-  if (smem <= 48 * 1024 || *done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-  if (e == cudaSuccess) *done = true;
-  return e;
-}
-
 template <typename T, int S, int MT>
 int launch_direct_sm(const T* tbl, const int* idx, const T* w, T* out, int Kt,
                      int N, int R, int M, int ldi, cudaStream_t st) {
@@ -226,124 +219,18 @@ int launch_direct(const void* tbl, const void* idx, const void* w, void* out,
   }
 }
 
-// ---- row-read form --------------------------------------------------------
-
-constexpr int TT = 32;        // transpose tile edge
-constexpr int TROWS = 8;      // blockDim.y of the transpose
-
-template <typename T>
-__global__ void __launch_bounds__(TT * TROWS)
-transpose_kernel(const T* __restrict__ tbl, T* __restrict__ tblT, int Kt,
-                 int N, int Ktp) {
-  __shared__ T tile[TT][TT + 1];
-  const int n0 = blockIdx.x * TT, k0 = blockIdx.y * TT;
-  for (int i = threadIdx.y; i < TT; i += TROWS) {
-    const int k = k0 + i, n = n0 + threadIdx.x;
-    if (k < Kt && n < N) tile[i][threadIdx.x] = tbl[static_cast<size_t>(k) * N + n];
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < TT; i += TROWS) {
-    const int n = n0 + i, k = k0 + threadIdx.x;
-    if (n < N && k < Kt) tblT[static_cast<size_t>(n) * Ktp + k] = tile[threadIdx.x][i];
-  }
-}
-
-template <typename T>
-int launch_transpose(const void* tbl, void* tblT, int Kt, int N, int Ktp,
-                     void* stream) {
-  if (Kt < 1 || N < 1 || Ktp < Kt) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + TT - 1) / TT, (Kt + TT - 1) / TT), block(TT, TROWS);
-  transpose_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tbl), static_cast<T*>(tblT), Kt, N, Ktp);
-  return static_cast<int>(cudaGetLastError());
-}
-
-constexpr int RT = 32;        // rows of a CTA's output tile
-constexpr int RW = 8;         // warps of a CTA
-constexpr int KL = 3;         // levels per lane
-constexpr int KP = 32 * KL;   // levels of a CTA's pass (blockIdx.y)
-constexpr int RLD = RT + 1;   // padded stride of the output tile
-
-template <typename T, int S>
-__global__ void __launch_bounds__(RW * 32)
-rows_kernel(const T* __restrict__ tblT, const int* __restrict__ idx,
-            const T* __restrict__ w, T* __restrict__ out, int Kt, int Ktp,
-            int R, int M, int ldi) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_out = reinterpret_cast<T*>(smem_raw);                  // [S*KP][RLD]
-
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * RT;
-  const int k0 = blockIdx.y * KP;
-
-  for (int rl = warp; rl < RT; rl += RW) {
-    const int r = r0 + rl;                                    // warp-uniform
-    T acc[S][KL];
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int kk = 0; kk < KL; ++kk) acc[s][kk] = T(0);
-
-    if (r < R) {
-      for (int m0 = 0; m0 < M; m0 += 32) {
-        // lane q holds slot m0 + q of this row: its index and S weights
-        const int mm = m0 + lane;
-        int my_j = 0;
-        T my_w[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) my_w[s] = T(0);
-        if (mm < M) {
-          my_j = idx[static_cast<size_t>(r) * ldi + mm];
-#pragma unroll
-          for (int s = 0; s < S; ++s)
-            my_w[s] = w[(static_cast<size_t>(s) * R + r) * M + mm];
-        }
-        const int cnt = min(32, M - m0);
-#pragma unroll 4
-        for (int q = 0; q < cnt; ++q) {
-          const int j = __shfl_sync(full, my_j, q);
-          const T* row = tblT + static_cast<size_t>(j) * Ktp + k0 + lane;
-          T g[KL];
-#pragma unroll
-          for (int kk = 0; kk < KL; ++kk)
-            g[kk] = (k0 + lane + 32 * kk < Kt) ? __ldg(row + 32 * kk) : T(0);
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            const T ws = __shfl_sync(full, my_w[s], q);
-#pragma unroll
-            for (int kk = 0; kk < KL; ++kk) acc[s][kk] += ws * g[kk];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int kk = 0; kk < KL; ++kk)
-        s_out[(s * KP + lane + 32 * kk) * RLD + rl] = acc[s][kk];
-  }
-  __syncthreads();
-
-  // the tile's rows, level-major: 32 adjacent outputs a warp
-  const int r = r0 + lane;
-  for (int q = warp; q < S * KP; q += RW) {
-    const int s = q / KP, k = k0 + (q - s * KP);
-    if (k < Kt && r < R)
-      out[(static_cast<size_t>(s) * Kt + k) * R + r] = s_out[q * RLD + lane];
-  }
-}
+// ---- row-read form (kernels in row_read.cuh) ------------------------------
 
 template <typename T, int S>
 int launch_rows_s(const T* tblT, const int* idx, const T* w, T* out, int Kt,
                   int Ktp, int R, int M, int ldi, cudaStream_t st) {
   static bool opted_in = false;
   const int smem = S * KP * RLD * static_cast<int>(sizeof(T));
-  cudaError_t e = opt_in(rows_kernel<T, S>, smem, &opted_in);
+  cudaError_t e = opt_in(rows_kernel<T, S, true>, smem, &opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((R + RT - 1) / RT, (Kt + KP - 1) / KP);
-  rows_kernel<T, S><<<grid, RW * 32, smem, st>>>(tblT, idx, w, out, Kt, Ktp,
-                                                 R, M, ldi);
+  rows_kernel<T, S, true><<<grid, RW * 32, smem, st>>>(tblT, idx, w, out, Kt,
+                                                       Ktp, R, M, ldi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,10 +2,12 @@
 
 Each source is compiled by its own `nvcc` process (gather_reduce.cu by two,
 one per element type), all started together, for `sm_90a` into an object
-file; the objects link into one shared library with
+file (row_read.cuh is a header that gather_reduce.cu and take_columns.cu
+share); the objects link into one shared library with
 a plain C interface, loaded with `ctypes`. The library lands in
-`mpas_tpu_torch/_build/` under a name that carries a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads at once.
+`mpas_tpu_torch/_build/` under a name that carries a hash of the flags and of
+every file under csrc/ (headers too), so an edited source or header rebuilds
+and an unchanged tree loads at once.
 Nothing here runs at import: the first launch of a kernel builds.
 """
 
@@ -47,11 +49,15 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """Hash of the flags, the build plan and every file under `csrc`, by
+    relative path and content: a header that two sources share counts."""
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
     for name, flags, obj in SOURCES:
         h.update(" ".join((name, *flags, obj)).encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -146,7 +152,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"acoustic_column_update_{suffix}")
-        fn.argtypes = [_P] * 26 + [_I, _I, _D, _D, _P]
+        fn.argtypes = [_P] * 26 + [_I, _I, _D, _D, _I, _I, _I, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"acoustic_column_resident_{suffix}")
+        fn.argtypes = [_I, _I, _I, _I]
         fn.restype = _I
         for form in ("direct", "rows"):
             fn = getattr(lib, f"gather_reduce_{form}_{suffix}")
@@ -155,9 +164,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"transpose_table_{suffix}")
         fn.argtypes = [_P, _P, _I, _I, _I, _P]
         fn.restype = _I
-        fn = getattr(lib, f"take_columns_{suffix}")
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-        fn.restype = _I
+        for form in ("direct", "rows"):
+            fn = getattr(lib, f"take_columns_{form}_{suffix}")
+            fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+            fn.restype = _I
     lib.windowed_reduce_f32.argtypes = [_P] * 6 + [_I] * 10 + [_P]
     lib.windowed_reduce_f32.restype = _I
     lib.mpas_cuda_error_string.argtypes = [_I]

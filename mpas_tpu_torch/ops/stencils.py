@@ -36,7 +36,8 @@ from .gather_reduce import gather_reduce
 # ---------------------------------------------------------------------------
 
 def gather(f, idx):
-    """Column gather: f [K, N] indexed by idx [R] -> [K, R]."""
+    """Column gather: f [K, N] indexed by idx [R] -> [K, R]. The one place
+    `take_packed` and the `edge_pair*` forms gather through."""
     return torch.index_select(f, 1, idx)
 
 
@@ -48,7 +49,7 @@ def take_packed(idx, *fields):
     """One gather serving several fields that share the index vector:
     fields [K_i, N] stack along dim 0 into one [sum K_i, N] table.
     Returns a list of gathered arrays, each [K_i, R]."""
-    g = torch.index_select(_stack(fields), 1, idx)
+    g = gather(_stack(fields), idx)
     outs, off = [], 0
     for f in fields:
         outs.append(g[off:off + f.shape[0]])
@@ -66,8 +67,7 @@ def edge_pairs(cellsOnEdge, *fields):
 
 def edge_pair(f_c, cellsOnEdge):
     """Cell field [K, C] -> (f(cell1), f(cell2)) each [K, E]."""
-    return (torch.index_select(f_c, 1, cellsOnEdge[:, 0]),
-            torch.index_select(f_c, 1, cellsOnEdge[:, 1]))
+    return gather(f_c, cellsOnEdge[:, 0]), gather(f_c, cellsOnEdge[:, 1])
 
 
 def owner_tile(f_c, n_slots: int = 3):
@@ -93,8 +93,7 @@ def edge_pairs_m(mesh, *fields):
 
 def edge_pair_m(mesh, f_c):
     if _aligned(mesh):
-        return (owner_tile(f_c),
-                torch.index_select(f_c, 1, mesh.cellsOnEdge[:, 1]))
+        return owner_tile(f_c), gather(f_c, mesh.cellsOnEdge[:, 1])
     return edge_pair(f_c, mesh.cellsOnEdge)
 
 

@@ -14,7 +14,11 @@
     broadcast one index row to all K rows, so its function is A's), and C
     is the fused 10-slot weighted reduce, which is Kernel 2.
   - `gather_forms(tbl, idx, w)` holds both forms of Kernel 2 against the
-    plain version on one input and times them in turns.
+    plain version on one input and times them in turns; `take_forms(tbl,
+    idx)` does the same for Kernel 4 against `index_select`.
+  - `acoustic_inputs(K, C, seed)` makes Kernel 1's arguments at any shape
+    from a numpy seed (`acoustic_args` puts them on a device), for the
+    checks of the kernel at shapes the step does not give it.
   - `compare_numberings(nl, mesh)` times the step on the default and on the
     ownership-aligned edge numbering in turns, both models on one card.
     `python -m mpas_tpu_torch.probes` runs it at full width (x1.40962, 41
@@ -39,6 +43,7 @@ from .dynamics.model import build_model, resolve_device
 from .ops import gather_reduce as gr
 from .ops import take_columns as tc
 from .ops import windowed as wd
+from .ops.acoustic import ImplicitCoefs
 
 
 L2_FLUSH_BYTES = 256 * 1024 * 1024      # 5x the H100's 50 MB L2
@@ -219,6 +224,91 @@ def gather_forms(tbl, idx, w):
                 picked="rows" if gr.uses_row_form(tbl, idx) else "direct")
 
 
+def take_forms(tbl, idx):
+    """Both forms of Kernel 4 on one input on the card: whether each equals
+    `index_select` bit for bit, the index vector's `index_scatter` and
+    `row_form_gain`, the form `take_columns` picks, and the times of the
+    two forms and of `index_select` in turns (direct, rows, library,
+    library, rows, direct; the mean of each one's two medians), warm and
+    with a cold L2."""
+    ref = torch.index_select(tbl, 1, idx)
+    forms = {"direct": lambda: tc.take_columns_direct(tbl, idx),
+             "rows": lambda: tc.take_columns_rows(tbl, idx),
+             "library": lambda: torch.index_select(tbl, 1, idx)}
+    row = {f"{name}_exact": bool(torch.equal(forms[name](), ref))
+           for name in ("direct", "rows")}
+    for key, cold in (("ms", False), ("ms_cold_l2", True)):
+        turns = {name: [] for name in forms}
+        for name in ("direct", "rows", "library", "library", "rows", "direct"):
+            turns[name].append(cuda_ms(forms[name], cold_l2=cold))
+        for name, ts in turns.items():
+            row[f"{name}_{key}"] = sum(ts) / len(ts)
+    return dict(row, sectors=gr.index_scatter(idx.unsqueeze(1),
+                                              tbl.element_size()),
+                gain=tc.index_gain(tbl, idx),
+                picked="rows" if tc.uses_row_form(tbl, idx) else "direct")
+
+
+def acoustic_inputs(K, C, seed=0):
+    """Kernel 1's arguments at any shape, as float64 numpy arrays from a
+    seed: {"fields": the 14 level-major fields by the wrapper's argument
+    names, "coefs": the ImplicitCoefs fields}. The tridiagonal factors come
+    from a diagonally dominant system (sub- and super-diagonal in [-0.4,
+    -0.1], diagonal 1 + their magnitudes), factored as the model factors
+    its own, so alpha_tri and gamma_tri are well conditioned; interface
+    fields are zero at interfaces 0 and K, as the model's are."""
+    rng = np.random.default_rng(seed)
+
+    def level(scale):
+        return rng.normal(0.0, scale, (K, C))
+
+    def iface(scale, positive=False):
+        a = rng.normal(0.0, scale, (K + 1, C))
+        if positive:
+            a = np.abs(a)
+        a[0] = a[K] = 0.0
+        return a
+
+    sub = -rng.uniform(0.1, 0.4, (K + 1, C))
+    sup = -rng.uniform(0.1, 0.4, (K + 1, C))
+    diag = 1.0 - sub - sup
+    alpha = np.zeros((K + 1, C))
+    gamma = np.zeros((K + 1, C))
+    for k in range(1, K):
+        alpha[k] = 1.0 / (diag[k] - sub[k] * gamma[k - 1])
+        gamma[k] = sup[k] * alpha[k]
+    sub[0] = sub[K] = 0.0
+    coefs = dict(cofrz=rng.uniform(0.05, 0.2, K),
+                 cofwr=iface(0.5, positive=True),
+                 cofwz=iface(0.5, positive=True),
+                 coftz=iface(300.0, positive=True),
+                 cofwt=np.abs(level(0.1)), a_tri=sub, alpha_tri=alpha,
+                 gamma_tri=gamma)
+    fields = dict(
+        rs0=level(1e-4), ts0=level(1e-2), ac_rho_pp=level(1e-4),
+        ac_rtheta_pp=level(1e-2), ac_rw_p=iface(1e-3), wwAvg=iface(1e-3),
+        tend_rho=level(1e-7), tend_rt=level(1e-5), tend_w=iface(1e-5),
+        zz=rng.uniform(0.8, 1.0, (K, C)), dss_i=iface(1e-3, positive=True),
+        zz_rho_i=iface(1.0, positive=True), w=iface(1e-2),
+        dw_save=iface(1e-3))
+    return {"fields": fields, "coefs": coefs}
+
+
+def acoustic_args(inputs, device="cuda", dtype=torch.float64,
+                  tendencies=True, dts=240.0, epssm=0.1):
+    """The positional arguments of `acoustic_column_update` from
+    `acoustic_inputs`, as tensors of `dtype` on `device`; with
+    `tendencies=False`, tend_rho and tend_rt are None."""
+    dev = resolve_device(device)
+    conv = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+    f = {k: conv(v) for k, v in inputs["fields"].items()}
+    coefs = ImplicitCoefs(**{k: conv(v) for k, v in inputs["coefs"].items()})
+    tend = (f["tend_rho"], f["tend_rt"]) if tendencies else (None, None)
+    return (f["rs0"], f["ts0"], f["ac_rho_pp"], f["ac_rtheta_pp"],
+            f["ac_rw_p"], f["wwAvg"], *tend, f["tend_w"], coefs, f["zz"],
+            f["dss_i"], f["zz_rho_i"], f["w"], f["dw_save"], dts, epssm)
+
+
 def mixed_index_table(idx, fraction, N, seed=0):
     """A copy of the index table idx with `fraction` of its entries, picked
     at random, replaced by random columns in [0, N): a table between a
@@ -269,7 +359,8 @@ def gather_probe(K=83, C=40962, R=122880, M=10, device="cuda", seed=0):
     k4_ms = time(lambda: tc.take_columns(tbl, idx))
     plain_ms = time(lambda: tc.take_columns_plain(tbl, idx))
     row_a = dict(K=K, C=C, R=R, max_abs_err=float((a - ref_a).abs().max()),
-                 ms=k4_ms, plain_ms=plain_ms,
+                 form="rows" if tc.uses_row_form(tbl, idx) else "direct",
+                 gain=tc.index_gain(tbl, idx), ms=k4_ms, plain_ms=plain_ms,
                  ms_cold_l2=time_cold(lambda: tc.take_columns(tbl, idx)),
                  library_ms=time(lambda: torch.index_select(tbl, 1, idx)),
                  bytes=take_bytes, flops=0)

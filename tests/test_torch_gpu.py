@@ -7,13 +7,15 @@ on a machine with a card and without JAX it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Setup: generate_mesh(levels=3, lloyd_iterations=2) (642 cells), 8 levels,
-float64 on the CPU, moved to the card in the dtype under test; Kernels 3
-and 4 on renumber_mesh(generate_mesh(levels=4)) (2562 cells)."""
+float64 on the CPU, moved to the card in the dtype under test; Kernel 1
+also on probes.acoustic_inputs at synthetic shapes; Kernels 3 and 4 on
+renumber_mesh(generate_mesh(levels=4)) (2562 cells)."""
 
 import numpy as np
 import pytest
 import torch
 
+from mpas_tpu_torch import probes
 from mpas_tpu_torch.config import Namelist
 from mpas_tpu_torch.dynamics.model import build_model
 from mpas_tpu_torch.mesh.generator import generate_mesh
@@ -84,6 +86,55 @@ def test_acoustic_column_kernel_matches_plain(cuda, cpu_model, dtype, rtol):
     for o, p in zip(out, ref):
         assert bool(torch.isfinite(o).all())
         assert rel_err(p, o) < rtol
+
+
+def _hold_acoustic(cuda, K, C, dtype, tendencies, tile=None, lanes=None):
+    rtol = 1e-4 if dtype == torch.float32 else 1e-12
+    args = probes.acoustic_args(probes.acoustic_inputs(K, C, seed=K + C),
+                                cuda, dtype, tendencies)
+    K1.launches = 0
+    out = K1.acoustic_column_update(*args, tile=tile, lanes=lanes)
+    ref = K1.acoustic_column_update_plain(*args)
+    torch.cuda.synchronize()
+    assert K1.launches == 1
+    for o, p in zip(out, ref):
+        assert o.shape == p.shape and bool(torch.isfinite(o).all())
+        assert float((o - p).abs().max()) <= rtol * float(p.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tendencies", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 31, 33, 1000])
+@pytest.mark.parametrize("K", [1, 2, 3, 41, 64])
+def test_acoustic_column_kernel_at_synthetic_shapes(cuda, K, C, dtype,
+                                                    tendencies):
+    """Down to one level and one column, column counts on either side of a
+    tile, with tend_rho/tend_rt given and None."""
+    _hold_acoustic(cuda, K, C, dtype, tendencies)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile,lanes", [(4, 64), (8, 3), (16, 16), (32, 1),
+                                        (32, 16), (32, 32)])
+def test_acoustic_column_kernel_takes_any_tile(cuda, dtype, tile, lanes):
+    _hold_acoustic(cuda, 41, 1000, dtype, False, tile, lanes)
+    _hold_acoustic(cuda, 5, 33, dtype, True, tile, lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_acoustic_column_kernel_at_the_most_levels(cuda, dtype):
+    size = torch.empty((), dtype=dtype).element_size()
+    most = K1.max_levels(size)
+    _hold_acoustic(cuda, most, 33, dtype, True)
+    assert K1.resident_ctas(most, dtype) == 1
+    assert K1.resident_ctas(41, dtype) >= 2
+    args = probes.acoustic_args(probes.acoustic_inputs(most + 1, 3), cuda,
+                                dtype)
+    with pytest.raises(K1.ColumnTileError):
+        K1.acoustic_column_update(*args)
 
 
 @pytest.mark.gpu
@@ -221,6 +272,53 @@ def test_take_columns_kernel_matches_plain(cuda, rmesh, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("form", ["direct", "rows"])
+@pytest.mark.parametrize("indices", ["mesh", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", [33, 1030])
+@pytest.mark.parametrize("K", [3, 41, 83])
+def test_take_columns_forms_match_index_select(cuda, rmesh, K, R, dtype,
+                                               indices, form):
+    """Each form by name, bit for bit: R no multiple of a tile's 32 rows, K
+    under a sector, not a multiple of one, and over one pass; mesh indices
+    are a strided column of cellsOnEdge."""
+    rng = np.random.default_rng(K + R)
+    N = rmesh.nCells
+    if indices == "mesh":
+        idx = torch.from_numpy(np.asarray(rmesh.cellsOnEdge, np.int32)
+                               ).to(cuda)[:R, 1]
+        assert idx.stride(0) == 2
+    else:
+        idx = torch.from_numpy(rng.integers(0, N, R, dtype=np.int32)).to(cuda)
+    tbl = torch.from_numpy(rng.normal(size=(K, N))).to(cuda, dtype)
+    fn = K4.take_columns_direct if form == "direct" else K4.take_columns_rows
+    K4.launches = K4.row_form_launches = 0
+    out = fn(tbl, idx)
+    torch.cuda.synchronize()
+    assert (K4.launches, K4.row_form_launches) == \
+        ((1, 0) if form == "direct" else (2, 2))
+    assert torch.equal(out, torch.index_select(tbl, 1, idx))
+
+
+@pytest.mark.gpu
+def test_take_columns_picks_its_form_from_the_index_vector(cuda, rmesh):
+    inp = probes.gather_probe_inputs(K=83, C=rmesh.nCells, R=rmesh.nEdges,
+                                     M=1, seed=6)
+    tbl = torch.from_numpy(inp["tbl"]).to(cuda)
+    coe = torch.from_numpy(np.asarray(rmesh.cellsOnEdge, np.int32)).to(cuda)
+    for idx, row_launches in ((coe[:, 0], 0),
+                              (torch.from_numpy(inp["idx"]).to(cuda), 2),
+                              ):
+        for t, rl in ((tbl, row_launches), (tbl[:7].contiguous(), 0)):
+            K4.launches = K4.row_form_launches = 0
+            out = K4.take_columns(t, idx)
+            torch.cuda.synchronize()
+            assert K4.row_form_launches == rl
+            assert K4.launches == max(1, rl)
+            assert torch.equal(out, K4.take_columns_plain(t, idx))
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_bad_arguments(cuda):
     tbl = torch.zeros((3, 10), device=cuda)
     idx = torch.zeros((4, 2), dtype=torch.int64, device=cuda)
@@ -234,6 +332,28 @@ def test_wrappers_reject_bad_arguments(cuda):
         K4.take_columns(tbl, idx[:, 0])
     with pytest.raises(ValueError):
         K4.take_columns(tbl.t(), idx[:, 0].int())
+    for form in (K4.take_columns_direct, K4.take_columns_rows):
+        with pytest.raises(TypeError):
+            form(tbl, idx[:, 0])
+        with pytest.raises(TypeError):
+            form(tbl.half(), idx[:, 0].int())
+        with pytest.raises(ValueError):
+            form(tbl.t(), idx[:, 0].int())
+        with pytest.raises(ValueError):
+            form(tbl, idx[:0, 0].int())
+        with pytest.raises(ValueError):
+            form(tbl, idx[:, 0].int().cpu())
+    col = probes.acoustic_args(probes.acoustic_inputs(3, 10), cuda,
+                               torch.float32)
+    with pytest.raises(ValueError, match="shape"):
+        K1.acoustic_column_update(col[0][:, :9].contiguous(), *col[1:])
+    with pytest.raises(TypeError):
+        K1.acoustic_column_update(col[0].double(), *col[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        K1.acoustic_column_update(col[0].t().contiguous().t(), *col[1:])
+    for tile, lanes in ((64, 32), (0, 4), (32, 0)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            K1.acoustic_column_update(*col, tile=tile, lanes=lanes)
     plan = K3.plan_windows(np.zeros((4, 2), np.int32))
     wT = torch.zeros((1, 2, plan.Rp), device=cuda)
     with pytest.raises(TypeError):
