@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, a dry Jablonowski-Williamson baroclinic-wave
-run, through `build_model` and `Model.step` at full width (the x1.40962
-mesh, 41 levels, float32, dt=300 s), and holds every CUDA kernel of that
-path against its plain PyTorch version on the inputs the path gives it.
+Drives the port's main paths, a dry Jablonowski-Williamson baroclinic-wave
+run and the same wave run moist (scalar transport, WSM6 microphysics, the
+PBL), through `build_model` and `Model.step` at full width (the x1.40962
+mesh, 41 levels, float32, dt=300 s), and holds every CUDA kernel of those
+paths against its plain PyTorch version on the inputs the paths give it.
 Phases, each printing one JSON line:
 
   1. nvidia-smi: the card's name and power limit;
@@ -32,9 +33,23 @@ Phases, each printing one JSON line:
      bench's setting) on the same mesh, with Kernel 2 checked at the shapes
      the aligned step adds (gather_reduce_orient, gather_forms), 10 counted
      steps and PROFILE_STEPS traced ones;
-  8. agreement: 2 steps on the card and on the CPU at x1.2562, 8 levels,
-     float64, port against port, on the default numbering and (agreement_
-     orient) with config_renumber_mesh and config_orient_edges;
+  7b. main_path_moist: the moist path at the same width, JW with
+     config_moisture, config_microphysics="wsm6" and config_pbl="ysu_lite"
+     on the default numbering: Kernel 2 at the call shapes the moist step
+     adds (gather_reduce_moist), 10 counted steps (launches of Kernels 1 and
+     2, the sedimentation substeps, each species' range, rainnc), and
+     profile_moist: PROFILE_STEPS traced steps and the step's three moist
+     parts (scalar transport, microphysics, PBL) traced one by one, the dry
+     part being what is left;
+  8. agreement: 2 steps on the card and on the CPU at x1.2562, float64,
+     port against port: dry JW on the default numbering and (agreement_
+     orient) with config_renumber_mesh and config_orient_edges; JW with
+     WSM6 and the PBL (agreement_moist, scalars and rainnc compared too);
+     dry JW in cell form with the Hollingsworth correction and APVM
+     upwinding (agreement_cellform); the mountain wave (agreement_mountain)
+     and the squall line with WSM6 (agreement_squall) on a reduced planet;
+  8b. squall: 60 float32 steps of the squall line on the card (2562 cells,
+     16 levels): a convective updraft, condensate, no negative rain;
   9. windowed_study: Kernel 3 (windowed gather-reduce) against its plain
      version, Kernel 2 and the index_select loop on the RCM-renumbered
      x1.40962 mesh at Kst = 48 and 168 levels (probes.windowed_study), and
@@ -71,6 +86,9 @@ PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core float32, data sheet
 # ~37, the two sweeps 4, damping, wwAvg and recovery ~23)
 ACOUSTIC_FLOPS_PER_POINT = 64
 MAIN_STEPS = 10
+ORIENT_STEPS = 5      # the aligned numbering's counted steps
+SQUALL_STEPS = 60
+DRY_K2_PER_STEP = 27  # Kernel 2 launches of a dry default-numbering step
 PROFILE_STEPS = 3
 PROFILE_TOP = 15
 K1_F32_REL = 1e-4     # float32 kernel vs plain, relative to max |plain|
@@ -105,20 +123,28 @@ def busy_us(events):
     return total
 
 
-def profile_steps(model, n, torch):
-    """Trace `n` steps: launches per step, the device-busy share (union of
-    the kernels' device intervals over the traced wall time), and device
-    time per step by kernel name, largest first."""
+def trace(fn, torch):
+    """Run fn() under torch.profiler: the device's kernel events and the
+    traced wall time in microseconds."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.step(n)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("profile: the trace holds no device activity")
+    return kernels, wall_us
+
+
+def profile_steps(model, n, torch):
+    """Trace `n` steps: launches per step, the device-busy share (union of
+    the kernels' device intervals over the traced wall time), and device
+    time per step by kernel name, largest first."""
+    kernels, wall_us = trace(lambda: model.step(n), torch)
     by_name = {}
     for e in kernels:
         d = by_name.setdefault(e.name, [0, 0.0])
@@ -140,6 +166,67 @@ def profile_steps(model, n, torch):
                       "ms_per_step": us / 1e3 / n,
                       "share_of_kernel_time": us / device_us}
                      for k, (c, us) in top])
+
+
+def profile_moist_parts(model, whole, torch):
+    """The moist step's four-way split. Scalar transport, microphysics and
+    the PBL are pure functions of the state, so each is traced on its own
+    on the model's current state (once to warm up, once traced): launches,
+    kernel device time, traced wall time. The dry part is what is left of
+    `whole` (profile_steps of the same model)."""
+    from mpas_tpu_torch.ops import scalars
+    from mpas_tpu_torch.physics import pbl, wsm6
+    m, s, nl = model, model.state, model.namelist
+    dt = nl.config_dt
+    parts = {
+        "scalar_transport": lambda: scalars.advance_scalars_mono(
+            s.scalars, s.rho_zz, s.ruAvg, s.wwAvg, m.mesh_arrays, m.vert, nl,
+            dt),
+        "microphysics": lambda: wsm6.apply_wsm6(
+            s, m.static, m.vert, nl, dt,
+            full=(nl.config_microphysics == "wsm6")),
+        "pbl": lambda: pbl.apply_pbl(s, m.static, m.vert, m.mesh_arrays, nl,
+                                     dt),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        kernels, wall_us = trace(fn, torch)
+        out[name] = dict(
+            launches=len(kernels), wall_ms=wall_us / 1e3,
+            kernel_device_ms=sum(e.time_range.end - e.time_range.start
+                                 for e in kernels) / 1e3)
+    step_wall = whole["traced_wall_ms"] / whole["traced_steps"]
+    out["dry"] = dict(
+        launches=whole["launches_per_step"]
+        - sum(p["launches"] for p in out.values()),
+        wall_ms=step_wall - sum(p["wall_ms"] for p in out.values()),
+        kernel_device_ms=whole["kernel_device_ms_per_step"]
+        - sum(p["kernel_device_ms"] for p in out.values()))
+    for p in out.values():
+        p["share_of_launches"] = p["launches"] / whole["launches_per_step"]
+        p["share_of_wall"] = p["wall_ms"] / step_wall
+    return out
+
+
+SPECIES = ("qv", "qc", "qr", "qi", "qs", "qg")
+
+
+def check_moisture(state, what):
+    """Range of each species and of rainnc, and the mean water a cell holds;
+    fails on a non-finite value, a species below -1e-7 or negative rain."""
+    if not (bool(state.scalars.isfinite().all())
+            and bool(state.rainnc.isfinite().all())):
+        raise RuntimeError(f"{what}: non-finite species or rainnc")
+    out = {name: [float(q.min()), float(q.max())]
+           for name, q in zip(SPECIES, state.scalars)}
+    out["rainnc"] = [float(state.rainnc.min()), float(state.rainnc.max())]
+    out["total_water_mean"] = float(state.scalars.sum(dim=0).mean())
+    if float(state.scalars.min()) < -1e-7:
+        raise RuntimeError(f"{what}: a species went negative: {out}")
+    if out["rainnc"][0] < 0.0:
+        raise RuntimeError(f"{what}: negative accumulated rain: {out}")
+    return out
 
 
 def smi_clocks():
@@ -542,25 +629,28 @@ def check_summary(summ, what):
         raise RuntimeError(f"{what}: extrema out of range: {summ}")
 
 
-def counted_steps(model, torch):
-    """MAIN_STEPS steps with the launch counters of Kernels 1 and 2 set to 0
+def counted_steps(model, torch, steps=MAIN_STEPS, k2_more_than=0):
+    """`steps` steps with the launch counters of Kernels 1 and 2 set to 0
     first: the step times, the host CPU time the process spent per step
     (more host work moves it, a busy host's other tenants do not), the
     launches, the peak memory and the summary. Fails if either kernel never
-    launched."""
+    launched, or Kernel 2 no more than `k2_more_than` times a step."""
     from mpas_tpu_torch.ops import acoustic_column, gather_reduce
     from mpas_tpu_torch.probes import step_ms
     acoustic_column.launches = gather_reduce.launches = 0
     gather_reduce.row_form_launches = 0
     torch.cuda.reset_peak_memory_stats()
     cpu0 = time.process_time()
-    times = step_ms(model, MAIN_STEPS)
-    cpu_ms = (time.process_time() - cpu0) * 1e3 / MAIN_STEPS
+    times = step_ms(model, steps)
+    cpu_ms = (time.process_time() - cpu0) * 1e3 / steps
     launches = {"acoustic_column": acoustic_column.launches,
                 "gather_reduce": gather_reduce.launches}
     if any(v <= 0 for v in launches.values()):
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
-    return dict(steps=MAIN_STEPS, ms_per_step_median=statistics.median(times),
+    if not launches["gather_reduce"] > k2_more_than * steps:
+        raise RuntimeError(f"gather_reduce launched {launches} times in "
+                           f"{steps} steps, no more than {k2_more_than} a step")
+    return dict(steps=steps, ms_per_step_median=statistics.median(times),
                 ms_per_step=times, host_cpu_ms_per_step=cpu_ms,
                 launches=launches,
                 gather_reduce_row_form_launches=gather_reduce.row_form_launches,
@@ -571,21 +661,37 @@ def counted_steps(model, torch):
 
 def agreement(nl, mesh, what, torch):
     """2 float64 steps on the card and on the CPU: max relative difference
-    per field, which must stay within AGREE_REL."""
+    per field (scalars and rainnc too, where the run has them), which must
+    stay within AGREE_REL."""
     from mpas_tpu_torch.dynamics.model import build_model
     gpu = build_model(nl, mesh, device="cuda")
     cpu = build_model(nl, mesh, device="cpu")
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    acoustic_column.launches = gather_reduce.launches = 0
     gpu.step(2)
     cpu.step(2)
+    launches = {"acoustic_column": acoustic_column.launches,
+                "gather_reduce": gather_reduce.launches}
     agree = {}
-    for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
+    fields = ["u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"]
+    if cpu.state.scalars is not None:
+        fields.append("scalars")
+    if cpu.state.rainnc is not None:
+        fields.append("rainnc")
+    for n in fields:
         a = getattr(gpu.state, n).cpu()
         b = getattr(cpu.state, n)
-        agree[n] = float((a - b).abs().max() / b.abs().max())
+        agree[n] = float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+    nl = gpu.namelist
     emit({"phase": what, "cells": mesh.nCells, "edges": gpu.mesh.nEdges,
           "levels": nl.config_nvertlevels, "dtype": nl.dtype, "steps": 2,
+          "init_case": nl.config_init_case,
           "orient_edges": nl.config_orient_edges,
           "renumber_mesh": nl.config_renumber_mesh,
+          "cell_form_ops": nl.config_cell_form_ops,
+          "microphysics": nl.config_microphysics, "pbl": nl.config_pbl,
+          "nfall": nl.config_kessler_nfall, "launches": launches,
+          "summary_card": gpu.summarize(),
           "max_rel_err": agree, "limit_rel": AGREE_REL})
     bad = {k: v for k, v in agree.items() if not v <= AGREE_REL}
     if bad:
@@ -686,7 +792,7 @@ def main():
     take_step += emit_take_columns_step(
         gathers, index_vector_names(model.mesh_arrays), "aligned", torch)
     del calls, new_calls, gathers
-    orient = timed(lambda: counted_steps(model, torch))
+    orient = timed(lambda: counted_steps(model, torch, ORIENT_STEPS))
     prof = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
     emit({"phase": "main_path_orient", "cells": model.mesh.nCells,
           "edges": model.mesh.nEdges, "edges_real": model.mesh.nEdgesReal,
@@ -699,13 +805,96 @@ def main():
     del model
     torch.cuda.empty_cache()
 
-    # 8. card against CPU, float64, x1.2562 / 8 levels, 2 steps
+    # 7b. the moist path at full width: JW + WSM6 + PBL, default numbering
+    t0 = time.perf_counter()
+    nl_m = nl.replace(config_moisture=True, config_microphysics="wsm6",
+                      config_pbl="ysu_lite")
+    model = build_model(nl_m, mesh, device="cuda")
+    torch.cuda.synchronize()
+    setup_m = time.perf_counter() - t0
+    _, calls, _ = record_step(model)
+    new_calls = {k: v for k, v in calls.items() if k not in shapes_seen}
+    k2_moist = check_gather_reduce(new_calls, torch)
+    for row in k2_moist:
+        emit({"phase": "gather_reduce_moist", **row})
+    if not k2_moist:
+        raise RuntimeError("gather_reduce_moist: the moist step added no "
+                           "call shape of Kernel 2")
+    k2_calls_per_step = sum(v["calls"] for v in calls.values())
+    del calls, new_calls
+    torch.cuda.empty_cache()
+    moist = timed(lambda: counted_steps(model, torch,
+                                        k2_more_than=DRY_K2_PER_STEP))
+    emit({"phase": "main_path_moist", "cells": model.mesh.nCells,
+          "edges": model.mesh.nEdges, "levels": 41, "dtype": "float32",
+          "dt": 300.0, "microphysics": model.namelist.config_microphysics,
+          "pbl": model.namelist.config_pbl,
+          "species": int(model.state.scalars.shape[0]),
+          "nfall": model.namelist.config_kessler_nfall,
+          "gather_reduce_calls_per_step": k2_calls_per_step,
+          "setup_s": setup_m, "setup_s_by_stage": model.setup_seconds,
+          **moist, "moisture": check_moisture(model.state, "main_path_moist")})
+    check_summary(moist["summary"], "main_path_moist")
+    prof_m = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
+    emit({"phase": "profile_moist", **prof_m,
+          "parts": profile_moist_parts(model, prof_m, torch)})
+    check_moisture(model.state, "profile_moist")
+    del model
+    torch.cuda.empty_cache()
+
+    # 8. card against CPU, float64, x1.2562, 2 steps
     nl6 = Namelist(config_nvertlevels=8, config_ztop=30000.0, dtype="float64",
                    config_jw_u_perturbation=1.0)
     mesh4 = generate_mesh(levels=4)
     agreement(nl6, mesh4, "agreement", torch)
     agreement(nl6.replace(config_renumber_mesh=True, config_orient_edges=True),
               mesh4, "agreement_orient", torch)
+    agreement(nl6.replace(config_moisture=True, config_microphysics="wsm6",
+                          config_pbl="ysu_lite"),
+              mesh4, "agreement_moist", torch)
+    agreement(nl6.replace(config_cell_form_ops=True, config_hollingsworth=True,
+                          config_apvm_upwinding=0.5),
+              mesh4, "agreement_cellform", torch)
+    # the reduced-planet cases: radius / 100 keeps the 642-cell test's
+    # ~4.4 km cell spacing on the 2562-cell mesh
+    radius = Namelist().config_sphere_radius / 100.0
+    small = dict(config_coriolis=False, config_vertical_stretch=1.0,
+                 config_sphere_radius=radius, config_nvertlevels=16,
+                 config_xnutr=0.3, config_len_disp=4800.0)
+    nl_mw = Namelist(config_init_case=21, dtype="float64", config_dt=12.0,
+                     config_ztop=16000.0, config_zd=10000.0,
+                     config_mtn_h0=250.0, config_mtn_halfwidth=20000.0,
+                     config_mtn_wavelength=80000.0, **small)
+    nl_sq = Namelist(config_init_case=22, dtype="float64", config_dt=16.0,
+                     config_number_of_sub_steps=4, config_ztop=20000.0,
+                     config_zd=14000.0, config_moisture=True,
+                     config_microphysics="wsm6", config_sq_bubble_dtheta=3.0,
+                     **small)
+    mesh4s = generate_mesh(levels=4, sphere_radius=radius)
+    agreement(nl_mw, mesh4s, "agreement_mountain", torch)
+    agreement(nl_sq, mesh4s, "agreement_squall", torch)
+
+    # 8b. the squall line on the card, float32: convection must develop
+    model = build_model(nl_sq.replace(dtype="float32"), mesh4s, device="cuda")
+    squall = timed(lambda: counted_steps(model, torch, SQUALL_STEPS,
+                                         k2_more_than=DRY_K2_PER_STEP))
+    summ = squall["summary"]
+    w_amp = max(abs(summ["w_min"]), abs(summ["w_max"]))
+    water = check_moisture(model.state, "squall")
+    condensate = float(model.state.scalars[1:].max())
+    del squall["gather_sectors"]
+    emit({"phase": "squall", "cells": model.mesh.nCells, "levels": 16,
+          "dtype": "float32", "dt": 16.0,
+          "nfall": model.namelist.config_kessler_nfall, **squall,
+          "w_amplitude": w_amp, "condensate_max": condensate,
+          "moisture": water})
+    if summ["nan_detected"] or not 0.3 < w_amp < 60.0:
+        raise RuntimeError(f"squall: no convective updraft (|w| = {w_amp}) "
+                           f"or NaN: {summ}")
+    if not condensate > 1e-6:
+        raise RuntimeError(f"squall: no condensate formed ({condensate})")
+    del model
+    torch.cuda.empty_cache()
 
     # 9. the windowed study on the RCM-renumbered x1.40962 mesh
     windowed.launches = 0
@@ -771,6 +960,7 @@ def main():
          "replaces": "mpas_tpu/ops/pallas_acoustic.py:34",
          "launches": launches["acoustic_column"],
          "launches_orient": orient["launches"]["acoustic_column"],
+         "launches_moist": moist["launches"]["acoustic_column"],
          "max_abs_err": k1["float32"]["max_abs_err"],
          "max_rel_err": k1["float32"]["max_rel_err"],
          "ms": k1["float32"]["ms"],
@@ -795,10 +985,14 @@ def main():
          "also_replaces": ["tools/pallas_gather_probe.py:110"],
          "launches": launches["gather_reduce"],
          "launches_orient": orient["launches"]["gather_reduce"],
+         "launches_moist": moist["launches"]["gather_reduce"],
+         "moist_shapes": [[r["Kt"], r["N"], r["R"], r["M"], r["S"]]
+                          for r in k2_moist],
          "row_form_launches": main["gather_reduce_row_form_launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2 + k2_orient),
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in k2 + k2_orient + k2_moist),
          "max_err_over_bound": max(r["max_err_over_bound"]
-                                   for r in k2 + k2_orient),
+                                   for r in k2 + k2_orient + k2_moist),
          "ms": big["ms"], "ms_cold_l2": big["ms_cold_l2"],
          "ms_after_idle": big["ms_after_idle"], "plain_ms": big["plain_ms"],
          "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],

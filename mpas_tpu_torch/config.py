@@ -137,8 +137,7 @@ class Namelist:
     # tangential matrices with flat slot gathers) instead of per-edge stencil
     # gathers — identical arithmetic.  Under the level-major layout the cell
     # form's [K, M*C]-wide slot-pair reads are the expensive gather shape,
-    # so the per-edge stencil form is the default (and the only form the
-    # port implements so far).
+    # so the per-edge stencil form is the default.
     config_cell_form_ops: bool = False
     # RCM locality renumbering of the mesh at model build (mesh/renumber.py):
     # a pure relabeling (trajectories are the original with permuted columns,

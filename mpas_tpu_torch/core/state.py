@@ -8,14 +8,14 @@ Array shape conventions (C=nCells, E=nEdges, V=nVertices, K=nVertLevels):
   cell w-fields    [K+1, C]     (interfaces)     e.g. w, rw, zgrid
   edge fields      [K, E]                        e.g. u, ru
   vertex fields    [K, V]                        e.g. vorticity
-Per-slot coefficient tables are slot-major: zb_cell/zb3_cell [M, K+1, C].
+  scalars          [nS, K, C]   (species major)
+Per-slot coefficient tables are slot-major: dirHess [M, 1+M, C],
+tanWeights [M, M, C], zb_cell/zb3_cell [M, K+1, C].
 
 Index tables are int32: `torch.index_select` takes them as they are, and the
 gather-reduce kernel (ops/gather_reduce.py) reads them without a copy. On an
 ownership-aligned mesh `MeshArrays.eoc_split` holds the split of
 edgesOnCell into owned planes and non-owned slots (`EocSplit`).
-The cell-form operator tables (dirHess, tanWeights, slotOnCell) belong to
-`config_cell_form_ops`, which this package does not implement yet.
 """
 
 from __future__ import annotations
@@ -161,6 +161,12 @@ class MeshArrays(_Replace):
     adv_coefs: Any            # [E, S]
     adv_coefs_3rd: Any        # [E, S]
 
+    # cell-form operators (mesh/coefficients.py compute_dir_hessian /
+    # compute_tangential_matrix / compute_edge_slots)
+    dirHess: Any              # [M, 1+M, C] (slot-major)
+    tanWeights: Any           # [M, M, C] (slot-major)
+    slotOnCell: Any           # [E, 2] int32
+
     # velocity reconstruction + deformation
     coeffs_reconstruct: Any   # [C, M, 3]
     defc_a: Any               # [C, M]
@@ -182,12 +188,20 @@ class MeshArrays(_Replace):
     # form), by table name; computed here, once, with the bounds check
     gather_sectors: Any = None
 
+    # kite area of the vertex in each slot of verticesOnCell, [C, M]: the
+    # weights of the vertex -> cell sums of the Hollingsworth correction and
+    # the APVM upwinding; a mesh constant, gathered here once
+    kiteAreaOnCell: Any = None
+
     def __post_init__(self):
         # the gather-reduce kernel reads through these tables without a
         # bounds check, so an out-of-range entry is refused here, once
         bounds = (("edgesOnCell", self.nEdges), ("edgesOnVertex", self.nEdges),
                   ("edgesOnEdge", self.nEdges),
-                  ("advCellsForEdge", self.nCells))
+                  ("advCellsForEdge", self.nCells),
+                  ("cellsOnCell", self.nCells),
+                  ("verticesOnCell", self.nVertices),
+                  ("slotOnCell", self.maxEdges))
         for name, n in bounds:
             t = getattr(self, name)
             if t.numel() and (int(t.min()) < 0 or int(t.max()) >= n):
@@ -203,9 +217,15 @@ class MeshArrays(_Replace):
                                  "numbered s*nCells + owner (mesh/orient.py)")
             self.eoc_split = EocSplit.build(self.edgesOnCell,
                                             self.edgesOnCell_mask)
+        if self.kiteAreaOnCell is None:
+            self.kiteAreaOnCell = torch.gather(
+                self.kiteAreasOnVertex[self.verticesOnCell.long()], 2,
+                self.kiteForCell.long()[..., None])[..., 0].contiguous()
         tables = {name: getattr(self, name) for name in
-                  ("edgesOnCell", "edgesOnVertex", "edgesOnEdge")}
-        # the advection reduction reads the neighbour slots only
+                  ("edgesOnCell", "edgesOnVertex", "edgesOnEdge",
+                   "verticesOnCell", "advCellsForEdge")}
+        # the dynamics' advection reduction reads the neighbour slots only
+        # (scalar transport reads them all)
         tables["advCellsForEdge[:, 2:]"] = self.advCellsForEdge[:, 2:]
         if self.eoc_split is not None:
             tables["eoc_split.idx"] = self.eoc_split.idx
@@ -301,13 +321,14 @@ class State(_Replace):
     cqw: Any            # [K, C] (interface slots 1..K-1 in rows 1..K-1)
     cqu: Any            # [K, E]
 
-    # scalars [nScalars, K, C]; None when dry (the only case the port runs)
+    # scalars (moisture etc.), [nScalars, K, C]; None when dry
     scalars: Any = None
+    # accumulated grid-scale precipitation [C] (mm); None without microphysics
     rainnc: Any = None
 
 
 def zero_state(C: int, E: int, V: int, K: int, dtype=torch.float32,
-               device="cuda") -> State:
+               device="cuda", n_scalars: int = 0) -> State:
     z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     o = lambda *s: torch.ones(s, dtype=dtype, device=device)
     return State(
@@ -322,6 +343,7 @@ def zero_state(C: int, E: int, V: int, K: int, dtype=torch.float32,
         tend_rtheta_physics=z(K, C), tend_ru_physics=z(K, E),
         # dry atmosphere: moisture coupling coefficients are exactly 1
         qtot=z(K, C), cqw=o(K, C), cqu=o(K, E),
+        scalars=(z(n_scalars, K, C) if n_scalars else None),
     )
 
 
@@ -348,6 +370,9 @@ def mesh_arrays_from_mesh(mesh: Mesh, namelist, dtype=torch.float32,
     adv_mask = adv.advMaskForEdge[:, :s_used]
     adv_c = adv.adv_coefs[:, :s_used]
     adv_c3 = adv.adv_coefs_3rd[:, :s_used]
+    dirHess = mcoef.compute_dir_hessian(mesh, deriv_two)
+    tanWeights = mcoef.compute_tangential_matrix(mesh)
+    slotOnCell = mcoef.compute_edge_slots(mesh)
     if getattr(namelist, "config_reconstruct_method", "lsq") == "rbf":
         coeffs_reconstruct = mcoef.compute_reconstruct_coefficients_rbf(mesh)
     else:
@@ -390,6 +415,10 @@ def mesh_arrays_from_mesh(mesh: Mesh, namelist, dtype=torch.float32,
         bdyMaskCell=i(bdy_c), bdyMaskEdge=i(bdy_e),
         advCellsForEdge=i(adv_cells), advMaskForEdge=f(adv_mask),
         adv_coefs=f(adv_c), adv_coefs_3rd=f(adv_c3),
+        # slot-major layouts: each weight row is a contiguous [C] vector
+        dirHess=f(np.moveaxis(dirHess, 0, 2)),
+        tanWeights=f(np.moveaxis(tanWeights, 0, 2)),
+        slotOnCell=i(slotOnCell),
         coeffs_reconstruct=f(coeffs_reconstruct),
         defc_a=f(defc_a), defc_b=f(defc_b),
         fEdge=f(fEdge), fVertex=f(fVertex),

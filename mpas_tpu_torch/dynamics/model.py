@@ -1,7 +1,8 @@
 """Top-level model assembly and run loop.
 
 The port of `mpas_tpu.dynamics.model`: host-side setup (mesh, coefficient
-builders, JW init, all numpy) followed by the SRK3 step on one device.
+builders, the initial condition of `config_init_case`, all numpy) followed
+by the SRK3 step on one device.
 There is no default grid file: a mesh is passed in, or the icosahedral
 level-6 mesh (x1.40962) is generated.
 """
@@ -20,15 +21,23 @@ from ..config import Namelist
 from ..core import state as core_state
 from ..core.vertical import VerticalGrid, make_vertical_grid
 from ..init import jw as jw_init
+from ..init import mountain_wave as mw_init
+from ..init import squall as sq_init
 from ..mesh import coefficients as mcoef
 from ..mesh.generator import generate_mesh
 from ..mesh.loader import Mesh
 from ..mesh.orient import orient_edges
 from ..mesh.renumber import renumber_mesh
 from ..ops import diagnostics as diag_ops
+from ..physics import kessler, wsm6
 from . import srk3
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# config_init_case -> (stage name in Model.setup_seconds, init function);
+# any other case is the JW baroclinic wave, as in mpas_tpu
+_INIT_CASES = {21: ("init_mountain_wave", mw_init.init_mountain_wave),
+               22: ("init_squall", sq_init.init_squall)}
+_INIT_DEFAULT = ("init_jw", jw_init.init_jw)
 
 
 @dataclass
@@ -75,8 +84,12 @@ def resolve_device(device) -> torch.device:
 def build_model(namelist: Optional[Namelist] = None,
                 mesh: Optional[Mesh] = None, device="cuda",
                 dtype=None) -> Model:
-    """Build all static coefficients, apply the JW initial condition, derive
-    the coupled state and close the step function over them. `mesh`
+    """Build all static coefficients, apply the initial condition of
+    `config_init_case` (2 JW baroclinic wave, 21 Schar mountain wave, 22
+    Weisman-Klemp storm), derive the coupled state and close the step
+    function over them. Microphysics brings its species (scalars[0] = qv),
+    turns scalar transport on and, with `config_kessler_nfall` = 0, sizes
+    the sedimentation substeps from the step and the thinnest layer. `mesh`
     defaults to `generate_mesh(levels=6)` (x1.40962). As in mpas_tpu,
     `config_renumber_mesh` renumbers the mesh (RCM, mesh/renumber.py) and
     then `config_orient_edges` aligns its edges to their owner cells
@@ -85,10 +98,6 @@ def build_model(namelist: Optional[Namelist] = None,
     nl = namelist or Namelist()
     dev = resolve_device(device)
     dtype = dtype or _DTYPES[nl.dtype]
-    if nl.config_init_case != 2:
-        raise NotImplementedError(
-            f"config_init_case={nl.config_init_case}: only the JW baroclinic "
-            "wave (2) is ported")
     srk3.check_namelist(nl)
 
     seconds, t0 = {}, time.perf_counter()
@@ -129,8 +138,9 @@ def build_model(namelist: Optional[Namelist] = None,
     vert = core_state.vertical_arrays_from_grid(vg, dtype, dev)
     lap("mesh_arrays")
 
-    static_np, init_np = jw_init.init_jw(mesh, vg, nl, deriv_two)
-    lap("init_jw")
+    init_stage, init_fn = _INIT_CASES.get(nl.config_init_case, _INIT_DEFAULT)
+    static_np, init_np = init_fn(mesh, vg, nl, deriv_two)
+    lap(init_stage)
     # host init builds element-major [N, K] arrays; flip to the level-major
     # layout here (zb/zb3 become slot-major [M, K+1, C])
     fT = lambda a: core_state.to_float(np.asarray(a).T, dtype, dev)
@@ -141,18 +151,41 @@ def build_model(namelist: Optional[Namelist] = None,
            for k, v in static_np.items()})
 
     C, E, V, K = mesh.nCells, mesh.nEdges, mesh.nVertices, vg.nVertLevels
-    state = core_state.zero_state(C, E, V, K, dtype, dev)
+    mp = nl.config_microphysics
+    use_mp = mp in srk3.MICROPHYSICS_SPECIES
+    n_scalars = (srk3.MICROPHYSICS_SPECIES.get(mp, 0)
+                 or (1 if nl.config_moisture else 0))
+    if use_mp and not nl.config_scalar_advection:
+        # microphysics requires transported moisture species
+        nl = nl.replace(config_scalar_advection=True)
+    if use_mp and nl.config_kessler_nfall == 0:
+        # one substep count serves every species that sediments, so it is
+        # sized against the largest of their fall-speed caps
+        dz_min = float(np.min(static_np["zgrid"][:, 1:]
+                              - static_np["zgrid"][:, :-1]))
+        max_vt = (kessler.MAX_VT if mp == "kessler"
+                  else wsm6.max_fall_speed(full=(mp == "wsm6")))
+        nl = nl.replace(config_kessler_nfall=kessler.fall_substeps(
+            nl.config_dt, dz_min, max_vt))
+    state = core_state.zero_state(C, E, V, K, dtype, dev, n_scalars=n_scalars)
     state = state.replace(
         u=fT(init_np["u"]), w=fT(init_np["w"]), theta_m=fT(init_np["theta_m"]),
         rho_zz=fT(init_np["rho"]),           # physical rho; coupled below
         v=fT(init_np["v"]), pressure_p=fT(init_np["pressure_p"]),
         exner=fT(init_np["exner"]))
+    if n_scalars and nl.config_moisture:
+        state.scalars[0] = fT(init_np["qv"])
+    if use_mp:
+        state = state.replace(rainnc=torch.zeros(C, dtype=dtype, device=dev))
 
     # atm_core_init sequence: coupled diagnostics, solve diagnostics,
     # reconstruction
     state = diag_ops.init_coupled_diagnostics(state, static, marr, vert)
-    diags = diag_ops.compute_solve_diagnostics(state, marr, reconstruct_v=True,
-                                               cell_form=False)
+    diags = diag_ops.compute_solve_diagnostics(
+        state, marr, hollingsworth=nl.config_hollingsworth,
+        reconstruct_v=True, cell_form=nl.config_cell_form_ops,
+        apvm_upwinding=nl.config_apvm_upwinding,
+        dt=nl.config_dt / nl.config_dynamics_split_steps)
     state = state.replace(**diags)
     zonal, meridional = diag_ops.reconstruct_velocity(state.u, marr)
     state = state.replace(uReconstructZonal=zonal, uReconstructMeridional=meridional)

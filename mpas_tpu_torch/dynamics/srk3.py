@@ -1,15 +1,16 @@
 """The 3rd-order Runge-Kutta split-explicit time integrator.
 
-The port of `mpas_tpu.dynamics.srk3` (atm_srk3 / atm_timestep), dry and on
-one device: the RK loop (3 stages) and the acoustic loop run as Python loops
-that launch the step's kernels eagerly on the tensors' device.
+The port of `mpas_tpu.dynamics.srk3` (atm_srk3 / atm_timestep) on one
+device: the RK loop (3 stages) and the acoustic loop run as Python loops
+that launch the step's kernels eagerly on the tensors' device, followed by
+the moist tail (monotonic scalar transport, microphysics, PBL) where the
+namelist turns it on.
 
 Differences from the Regent reference, as in mpas_tpu:
   - atm_recover_large_step_variables runs every RK stage;
   - the final rho_zz is rediagnosed as rho_p + rho_base after the
-    dynamics-split bookkeeping restores the old density.
-The scalar-transport, microphysics and PBL tail of mpas_tpu's step is not
-ported yet: a namelist that enables it raises.
+    dynamics-split bookkeeping restores the old density for scalar
+    transport.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ import torch
 from ..ops import acoustic as ac_ops
 from ..ops import diagnostics as diag_ops
 from ..ops import recover as rk_ops
+from ..ops import scalars as scalar_ops
 from ..ops import tendencies as tend_ops
+from ..physics import kessler, pbl, wsm6
+
+# species a microphysics scheme needs in state.scalars
+MICROPHYSICS_SPECIES = {"kessler": 3, "wsm6lite": 5, "wsm6": 6}
 
 
 def rk_substep_counts(number_of_sub_steps: int):
@@ -29,19 +35,10 @@ def rk_substep_counts(number_of_sub_steps: int):
 
 
 def check_namelist(nl) -> None:
-    """Raise for the options this port does not implement yet."""
-    unported = {
-        "config_cell_form_ops": getattr(nl, "config_cell_form_ops", False),
-        "config_apvm_upwinding": getattr(nl, "config_apvm_upwinding", 0.0) != 0.0,
-        "config_hollingsworth": getattr(nl, "config_hollingsworth", False),
-        "config_moisture": nl.config_moisture,
-        "config_scalar_advection": nl.config_scalar_advection,
-        "config_microphysics": nl.config_microphysics != "off",
-        "config_pbl": getattr(nl, "config_pbl", "off") != "off",
-    }
-    on = sorted(k for k, v in unported.items() if v)
-    if on:
-        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
+    """Raise for the one option of the single-device step that is not
+    ported yet: the regional lateral boundary conditions."""
+    if getattr(nl, "config_apply_lbcs", False):
+        raise NotImplementedError("not ported yet: config_apply_lbcs")
 
 
 def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
@@ -65,15 +62,25 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
     ruAvg_split = torch.zeros_like(state.ruAvg)
     wwAvg_split = torch.zeros_like(state.wwAvg)
 
+    # In stencil form (apvm off) the tangential velocity comes from
+    # compute_dyn_tend's Coriolis reduce (the same sum, one edgesOnEdge
+    # reduction saved per step); otherwise solve_diagnostics reconstructs it
+    # on the first RK stage.
+    cell_form = getattr(nl, "config_cell_form_ops", False)
+    apvm = getattr(nl, "config_apvm_upwinding", 0.0)
+    v_from_tend = (not cell_form) and apvm == 0.0
+
     for dynamics_substep in range(1, dynamics_split + 1):
         coefs = None
         tend = None
 
         for rk_step in range(3):
-            # diagnostics of the current stage state; the tangential
-            # velocity comes from compute_dyn_tend's Coriolis reduce
+            # diagnostics of the current stage state
             diags = diag_ops.compute_solve_diagnostics(
-                state, mesh, reconstruct_v=False, cell_form=False)
+                state, mesh,
+                hollingsworth=getattr(nl, "config_hollingsworth", False),
+                reconstruct_v=(rk_step == 0 and not v_from_tend),
+                cell_form=cell_form, apvm_upwinding=apvm, dt=dt_dynamics)
             state = state.replace(**diags)
             if rk_step == 0:
                 zonal, meridional = diag_ops.reconstruct_velocity(state.u, mesh)
@@ -87,7 +94,7 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
             ns = number_sub_steps[rk_step]
             tend = tend_ops.compute_dyn_tend(state, save, static, mesh, vert,
                                              nl, rk_step, dt, prev=tend)
-            if rk_step == 0:
+            if rk_step == 0 and v_from_tend and tend.v is not None:
                 state = state.replace(v=tend.v)
             tend = rk_ops.set_smlstep_pert_variables(tend, static, mesh, vert,
                                                      nl=nl)
@@ -120,9 +127,36 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
             state, save, dynamics_substep, dynamics_split,
             ruAvg_split, wwAvg_split)
 
-    # rediagnose the new density (the split bookkeeping restored the old
-    # one for scalar transport, which is not ported yet)
-    return state.replace(rho_zz=state.rho_p + static.rho_base)
+    # scalar transport on (rho_zz_old, ruAvg, wwAvg), monotonic FCT per
+    # MPAS: rho_zz holds the OLD (pre-step) density here, the split
+    # bookkeeping restored it for exactly this flux-form update.
+    rho_zz_old = state.rho_zz
+    # rediagnose the new density BEFORE microphysics: the column schemes
+    # couple rtheta_p = rho_zz*theta_m - rtheta_base from the equation of
+    # state, and the old density there would be a spurious heating every
+    # step
+    state = state.replace(rho_zz=state.rho_p + static.rho_base)
+    if state.scalars is not None and nl.config_scalar_advection:
+        scal_new, _ = scalar_ops.advance_scalars_mono(
+            state.scalars, rho_zz_old, state.ruAvg, state.wwAvg, mesh, vert,
+            nl, dt)
+        state = state.replace(scalars=scal_new)
+
+    # microphysics closes the moisture loop, where the state carries the
+    # species the scheme needs
+    mp = nl.config_microphysics
+    if (mp in MICROPHYSICS_SPECIES and state.scalars is not None
+            and state.scalars.shape[0] >= MICROPHYSICS_SPECIES[mp]):
+        if mp == "kessler":
+            state = kessler.apply_kessler(state, static, vert, nl, dt)
+        else:
+            state = wsm6.apply_wsm6(state, static, vert, nl, dt,
+                                    full=(mp == "wsm6"))
+
+    # surface layer + PBL vertical mixing
+    if getattr(nl, "config_pbl", "off") == "ysu_lite":
+        state = pbl.apply_pbl(state, static, vert, mesh, nl, dt)
+    return state
 
 
 def summarize_timestep(state, mesh):

@@ -3,8 +3,7 @@ state initialization, output diagnostics.
 
 The port of `mpas_tpu.ops.diagnostics` (atm_compute_solve_diagnostics,
 mpas_reconstruct_2d, atm_init_coupled_diagnostics,
-atm_compute_output_diagnostics) over level-major [K, N] fields, stencil form
-only. Reference defects corrected in mpas_tpu, and kept here: divergence
+atm_compute_output_diagnostics) over level-major [K, N] fields. Reference defects corrected in mpas_tpu, and kept here: divergence
 accumulates s * u; the tangential-velocity sum includes all nEdgesOnEdge
 terms; rho_edge is computed.
 """
@@ -24,12 +23,18 @@ def compute_solve_diagnostics(state, mesh, hollingsworth: bool = False,
     """Returns dict of updated diagnostic fields:
     ke, divergence, vorticity, pv_edge, rho_edge, v (if reconstruct_v).
 
-    Only the stencil form without the Hollingsworth correction or APVM
-    upwinding is ported; the other options raise."""
-    if cell_form or hollingsworth or apvm_upwinding > 0.0:
-        raise NotImplementedError(
-            "compute_solve_diagnostics: cell-form operators, the "
-            "Hollingsworth correction and APVM upwinding are not ported")
+    `cell_form`: compute the tangential velocity via the per-cell Thuburn
+    matrices (mesh.tanWeights + slot gathers) instead of the edgesOnEdge
+    reduction: identical arithmetic.
+
+    `apvm_upwinding` > 0 applies the anticipated-potential-vorticity
+    upwinding of pv_edge (Ringler et al. JCP 2010 eq. 72):
+    pv_edge -= apvm*dt*(v*gradPVt + u*gradPVn). `dt` is required (> 0)
+    whenever apvm_upwinding > 0."""
+    if apvm_upwinding > 0.0 and not dt > 0.0:
+        raise ValueError(
+            f"apvm_upwinding={apvm_upwinding} requires dt > 0 (got {dt}); "
+            "a zero dt silently disables the APVM correction")
     u = state.u
     h = state.rho_zz
 
@@ -51,18 +56,65 @@ def compute_solve_diagnostics(state, mesh, hollingsworth: bool = False,
     ke = sum(w_ke[:, m][None, :] * gu_slots[m] ** 2
              for m in range(len(gu_slots)))
 
+    # vertex -> cell weights of the two options below: kite areas, a mesh
+    # constant (MeshArrays.kiteAreaOnCell)
+    w_kite = None
+    if hollingsworth or apvm_upwinding > 0.0:
+        w_kite = mesh.kiteAreaOnCell * mesh.edgesOnCell_mask
+
+    if hollingsworth:
+        # AG's KE construction: blend the cell KE with the kite-weighted
+        # vertex KE
+        ke_edge = (mesh.dcEdge * mesh.dvEdge)[None, :] * u * u
+        r = 0.25 * mesh.invAreaTriangle[None, :]
+        ke_vertex = st.sum_edges_to_vertex(
+            ke_edge, mesh.edgesOnVertex,
+            torch.ones_like(mesh.edgesOnVertexSign)) * r
+        ke_fact = 1.0 - 0.375
+        ke = ke * ke_fact
+        ((kv_sum,),) = st.slot_reduce(mesh.verticesOnCell,
+                                      [(ke_vertex, [w_kite])])
+        ke = ke + (1.0 - ke_fact) * mesh.invAreaCell[None, :] * kv_sum
+
     out = dict(ke=ke, divergence=divergence, vorticity=vorticity,
                rho_edge=rho_edge)
 
     # tangential velocities (Thuburn et al JCP 2009)
     if reconstruct_v:
-        out["v"] = st.edges_on_edge_sum(u, mesh.edgesOnEdge,
-                                        mesh.weightsOnEdge,
-                                        mesh.edgesOnEdge_mask)
+        if cell_form:
+            t_u = st.cell_tangential(mesh.tanWeights, gu_slots)
+            tu1, tu2 = st.edge_slot_pair(t_u, mesh.cellsOnEdge,
+                                         mesh.slotOnCell)
+            out["v"] = tu1 + tu2
+        else:
+            out["v"] = st.edges_on_edge_sum(u, mesh.edgesOnEdge,
+                                            mesh.weightsOnEdge,
+                                            mesh.edgesOnEdge_mask)
 
     # potential vorticity at vertices and edges (dry: no 1/h factor)
     pv_vertex = mesh.fVertex[None, :] + vorticity
-    out["pv_edge"] = st.sum_vertices_to_edge(pv_vertex, mesh.verticesOnEdge)
+    pv_edge = st.sum_vertices_to_edge(pv_vertex, mesh.verticesOnEdge)
+
+    if apvm_upwinding > 0.0:
+        # anticipated PV: advect pv_edge upstream by apvm*dt along the full
+        # (normal u, tangential v) edge velocity
+        pvv1 = torch.index_select(pv_vertex, 1, mesh.verticesOnEdge[:, 0])
+        pvv2 = torch.index_select(pv_vertex, 1, mesh.verticesOnEdge[:, 1])
+        gradPVt = (pvv2 - pvv1) / mesh.dvEdge[None, :]
+        ((pvc_sum,),) = st.slot_reduce(mesh.verticesOnCell,
+                                       [(pv_vertex, [w_kite])])
+        pv_cell = mesh.invAreaCell[None, :] * pvc_sum
+        gradPVn = st.diff_cell_to_edge_m(mesh, pv_cell) / mesh.dcEdge[None, :]
+        # With reconstruct_v=False (RK stages 1-2 in srk3) this reuses the
+        # stage-0 tangential velocity state.v while u and pv are of the
+        # current stage, as MPAS does: v is refreshed only where
+        # solve_diagnostics reconstructs it, and the APVM term is a small
+        # dissipative correction insensitive to an O(dt) lag.
+        v_edge = out.get("v", state.v)
+        pv_edge = pv_edge - apvm_upwinding * dt * (v_edge * gradPVt
+                                                   + u * gradPVn)
+
+    out["pv_edge"] = pv_edge
     return out
 
 

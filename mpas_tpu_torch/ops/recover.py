@@ -2,8 +2,7 @@
 
 The port of `mpas_tpu.ops.recover`: atm_rk_integration_setup,
 atm_set_smlstep_pert_variables, atm_recover_large_step_variables,
-atm_rk_dynamics_substep_finish and atm_compute_moist_coefficients (dry
-limit). All fields are level-major [K, N] (core/state.py).
+atm_rk_dynamics_substep_finish and atm_compute_moist_coefficients. All fields are level-major [K, N] (core/state.py).
 
 Reference defects corrected in mpas_tpu, and kept here:
   - ru = ru_save + ru_p;
@@ -50,13 +49,19 @@ def rk_integration_setup(state) -> RKSave:
 
 
 def compute_moist_coefficients(state, mesh):
-    """qtot, cqw, cqu in the dry limit: qtot = 0 and cqw = cqu = 1.
-    Moisture (state.scalars) is not ported yet and raises."""
-    if state.scalars is not None:
-        raise NotImplementedError("moist coefficients: scalars are not ported")
-    return state.replace(qtot=torch.zeros_like(state.theta_m),
-                         cqw=torch.ones_like(state.cqw),
-                         cqu=torch.ones_like(state.cqu))
+    """qtot, cqw (interface slots 1..K-1), cqu; the dry limit (no scalars)
+    gives qtot = 0 and cqw = cqu = 1 exactly."""
+    if state.scalars is None:
+        return state.replace(qtot=torch.zeros_like(state.theta_m),
+                             cqw=torch.ones_like(state.cqw),
+                             cqu=torch.ones_like(state.cqu))
+    # moist: sum the water species (index 0 = qv by convention)
+    qtot = torch.sum(state.scalars, dim=0)                   # [K, C]
+    q_i = 0.5 * (qtot[1:] + qtot[:-1])                       # interfaces 1..K-1
+    cqw = torch.cat([torch.ones_like(qtot[:1]), 1.0 / (1.0 + q_i)], dim=0)
+    q1, q2 = st.edge_pair_m(mesh, qtot)
+    cqu = 1.0 / (1.0 + 0.5 * (q1 + q2))
+    return state.replace(qtot=qtot, cqw=cqw, cqu=cqu)
 
 
 def set_smlstep_pert_variables(tend, static, mesh, vert, nl=None):

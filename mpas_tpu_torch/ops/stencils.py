@@ -1,6 +1,6 @@
 """Gather-based stencil primitives for the unstructured C-grid.
 
-The port of `mpas_tpu.ops.stencils` (plain, unaligned forms). All
+The port of `mpas_tpu.ops.stencils`. All
 horizontal indirection in the dycore reduces to a handful of patterns,
 expressed scatter-free (every output column pulls its inputs):
 
@@ -10,6 +10,9 @@ expressed scatter-free (every output column pulls its inputs):
     them go through `slot_reduce`, which launches the gather-reduce kernel
     (ops/gather_reduce.py) on the card
   - vertical interface/mass interpolation and 3rd/4th-order vertical fluxes
+  - the cell-form operators (`config_cell_form_ops`): per-cell directional
+    Hessians and tangential matrices, read back per edge by one wide gather
+    from the [K, M*C] concatenation of the M slot arrays
 
 Layout: every per-column field is level-major [K, N] (core/state.py), so a
 horizontal gather is a dim-1 `index_select` and fields that share an index
@@ -177,6 +180,68 @@ def slot_gather(idx, field):
     return [torch.index_select(field, 1, idx[:, m]) for m in range(idx.shape[1])]
 
 
+def dir_second_deriv(dirHess, cellsOnCell, *fields):
+    """Directional second derivatives (cell-form advection operator,
+    mesh/coefficients.compute_dir_hessian): per field, a list of M arrays
+    [K, C], D_m = dirHess[m, 0]*q + sum_i dirHess[m, 1+i]*q[nbr_i].
+    dirHess is slot-major [M, 1+M, C]; the neighbourhood gathers stack all
+    fields (one gather per neighbour slot)."""
+    M = cellsOnCell.shape[1]
+    tbl = _stack(fields)
+    gs = [gather(tbl, cellsOnCell[:, i]) for i in range(M)]
+    outs, off = [], 0
+    for f in fields:
+        sl = slice(off, off + f.shape[0])
+        off += f.shape[0]
+        D = []
+        for m in range(M):
+            acc = dirHess[m, 0][None, :] * f
+            for i in range(M):
+                acc = acc + dirHess[m, 1 + i][None, :] * gs[i][sl]
+            D.append(acc)
+        outs.append(D)
+    return outs
+
+
+def edge_slot_pair(slots, cellsOnEdge, slotOnCell):
+    """Read per-(cell, edge-slot) values at both sides of every edge:
+    `slots` is a list of M [K, C] arrays; returns (tbl[c1, slot1],
+    tbl[c2, slot2]) each [K, E]."""
+    ((s1, s2),) = edge_slot_pairs(cellsOnEdge, slotOnCell, slots)
+    return s1, s2
+
+
+def edge_slot_pairs(cellsOnEdge, slotOnCell, *slot_lists):
+    """Stacked edge_slot_pair over several per-field slot-table lists that
+    share the (cell, slot) index: each slot m stacks all fields along the
+    level axis, the M slot arrays lie side by side in one [sum K_i, M*C]
+    table, and two wide gathers at the flat index slot*C + cell serve every
+    field. Returns [(f_side1 [K_i, E], f_side2), ...]."""
+    C = slot_lists[0][0].shape[1]
+    M = len(slot_lists[0])
+    stacked = [_stack([sl[m] for sl in slot_lists]) for m in range(M)]
+    flat = torch.cat(stacked, dim=1)                      # [sum K_i, M*C]
+    i1 = slotOnCell[:, 0] * C + cellsOnEdge[:, 0]
+    i2 = slotOnCell[:, 1] * C + cellsOnEdge[:, 1]
+    g1 = gather(flat, i1)
+    g2 = gather(flat, i2)
+    outs, off = [], 0
+    for sl in slot_lists:
+        h = sl[0].shape[0]
+        outs.append((g1[off:off + h], g2[off:off + h]))
+        off += h
+    return outs
+
+
+def cell_tangential(tanWeights, g_slots):
+    """Per-cell tangential (Thuburn) matrices: g_slots = slot_gather(
+    edgesOnCell, u); tanWeights [M, M, C]; returns list of M arrays [K, C]:
+    t_i = sum_j tanW[i, j] * g_j."""
+    M = len(g_slots)
+    return [sum(tanWeights[i, j][None, :] * g_slots[j] for j in range(M))
+            for i in range(M)]
+
+
 def sum_edges_to_cell(f_e, edgesOnCell, weights):
     """sum_m weights[c, m] * f_e[:, edgesOnCell[c, m]] -> [K, C].
     `weights` [C, M] already folds in sign/mask/length factors."""
@@ -243,22 +308,37 @@ def adv_flux_on_edge(q_c, flow_sign, adv_cells, adv_coefs, adv_coefs_3rd):
     return base + flow_sign * third
 
 
+def adv_flux_on_edge_cellform(q, flow_sign, mesh, coef3):
+    """Cell-form equivalent of adv_flux_on_edge: the same 3rd/4th-order edge
+    value via per-cell directional Hessians + slot gathers (an exact
+    algebraic identity; see mesh/coefficients.compute_dir_hessian)."""
+    (Dc,) = dir_second_deriv(mesh.dirHess, mesh.cellsOnCell, q)
+    D1, D2 = edge_slot_pair(Dc, mesh.cellsOnEdge, mesh.slotOnCell)
+    q1, q2 = edge_pair(q, mesh.cellsOnEdge)
+    scale = (mesh.dvEdge * mesh.dcEdge ** 2 / 12.0)[None, :]
+    return (0.5 * mesh.dvEdge[None, :] * (q1 + q2)
+            - scale * ((D1 + D2) + flow_sign * coef3 * (D1 - D2)))
+
+
 # ---------------------------------------------------------------------------
-# vertical operators (K is the major axis)
+# vertical operators: the level axis is the last but one, so [K, N] fields
+# and species-major stacks [nS, K, N] go through the same code and no
+# species reaches into its neighbour's levels
 # ---------------------------------------------------------------------------
 
 def interface_interp(f, fzm, fzp):
-    """Mass-level field [K, N] -> interface values [K+1, N];
+    """Mass-level field [..., K, N] -> interface values [..., K+1, N];
     interior k: fzm[k]*f[k] + fzp[k]*f[k-1]; rows 0 and K are zero."""
-    K = f.shape[0]
-    interior = fzm[1:K, None] * f[1:] + fzp[1:K, None] * f[:-1]
-    zero = torch.zeros_like(f[:1])
-    return torch.cat([zero, interior, zero], dim=0)
+    K = f.shape[-2]
+    interior = (fzm[1:K, None] * f[..., 1:, :]
+                + fzp[1:K, None] * f[..., :-1, :])
+    zero = torch.zeros_like(f[..., :1, :])
+    return torch.cat([zero, interior, zero], dim=-2)
 
 
 def delta(g):
     """Difference along the level axis: g[1:] - g[:-1]."""
-    return g[1:] - g[:-1]
+    return g[..., 1:, :] - g[..., :-1, :]
 
 
 def flux4(q_im2, q_im1, q_i, q_ip1, ua):
@@ -273,16 +353,17 @@ def flux3(q_im2, q_im1, q_i, q_ip1, ua, coef3):
 
 
 def vflux_mass_to_iface(q, m_iface, fzm, fzp, coef3):
-    """Vertical flux of a mass-level quantity q [K, N] through interfaces,
-    advected by m_iface [K+1, N]: returns [K+1, N].
+    """Vertical flux of a mass-level quantity q [..., K, N] through
+    interfaces, advected by m_iface [K+1, N]: returns [..., K+1, N].
     0 at interfaces 0 and K; 2nd-order fzm/fzp interpolation at interfaces
     1 and K-1; flux3 at 2..K-2."""
-    K = q.shape[0]
+    K = q.shape[-2]
     out = m_iface * interface_interp(q, fzm, fzp)
     if K >= 4:
         ua = m_iface[2:K - 1]
-        out[2:K - 1] = flux3(q[0:K - 3], q[1:K - 2], q[2:K - 1], q[3:K], ua,
-                             coef3)
+        out[..., 2:K - 1, :] = flux3(
+            q[..., 0:K - 3, :], q[..., 1:K - 2, :], q[..., 2:K - 1, :],
+            q[..., 3:K, :], ua, coef3)
     return out
 
 

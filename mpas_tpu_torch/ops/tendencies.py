@@ -1,6 +1,7 @@
 """Large-step tendencies: the atm_compute_dyn_tend rebuild.
 
-The port of `mpas_tpu.ops.tendencies`, stencil form: U section (pressure
+The port of `mpas_tpu.ops.tendencies`, in stencil form and (with
+`config_cell_form_ops`) in cell form: U section (pressure
 gradient, vertical transport, nonlinear Coriolis, KE gradient, curvature,
 del2/del4 mixing, Rayleigh damping), W section (horizontal 3rd-order
 advection, curvature, mixing, vertical advection, buoyancy), THETA section
@@ -43,8 +44,9 @@ class Tend:
     dpdz: Any            # [K, C]
     # diagnostics for physics couplings
     rthdynten: Any       # [K, C]
-    # tangential velocity: the Coriolis term's weighted edgesOnEdge sum of u
-    # IS Thuburn's v, so the reduce is shared with compute_solve_diagnostics
+    # tangential velocity (stencil form): the Coriolis term's weighted
+    # edgesOnEdge sum of u IS Thuburn's v, so the reduce is shared with
+    # compute_solve_diagnostics; None in cell form
     v: Any = None        # [K, E]
 
     def replace(self, **kw):
@@ -77,8 +79,6 @@ def _smagorinsky_kdiff(state, mesh, nl, invDt, v=None):
 
 def compute_dyn_tend(state, save, static, mesh, vert, nl, rk_step: int,
                      dt: float, prev: Tend | None = None) -> Tend:
-    if getattr(nl, "config_cell_form_ops", False):
-        raise NotImplementedError("cell-form operators are not ported")
     K, C = state.theta_m.shape
     fzm, fzp, rdzw, rdzu = vert.fzm, vert.fzp, vert.rdzw, vert.rdzu
     coe = mesh.cellsOnEdge
@@ -91,14 +91,19 @@ def compute_dyn_tend(state, save, static, mesh, vert, nl, rk_step: int,
 
     sign_dv = mesh.edgesOnCellSign * mesh.dvEdge[eoc]                 # [C, M]
     sign_only = mesh.edgesOnCellSign
+    cell_form = getattr(nl, "config_cell_form_ops", False)
 
-    # ---- nonlinear Coriolis edgesOnEdge reduction: its weighted sum of u
-    # IS the Thuburn tangential velocity, returned in Tend.v ----
-    W_eoe = mesh.weightsOnEdge * mesh.edgesOnEdge_mask
-    ((su,), (supv,)) = st.slot_reduce(
-        mesh.edgesOnEdge, [(state.u, [W_eoe]),
-                           (state.u * state.pv_edge, [W_eoe])])
-    v_tan = su
+    # ---- nonlinear Coriolis edgesOnEdge reduction (stencil form): its
+    # weighted sum of u IS the Thuburn tangential velocity, returned in
+    # Tend.v ----
+    if not cell_form:
+        W_eoe = mesh.weightsOnEdge * mesh.edgesOnEdge_mask
+        ((su,), (supv,)) = st.slot_reduce(
+            mesh.edgesOnEdge, [(state.u, [W_eoe]),
+                               (state.u * state.pv_edge, [W_eoe])])
+        v_tan = su
+    else:
+        su = supv = v_tan = None
 
     # ---- packed cell-field edge pairs ----
     zz1, zz2 = st.edge_pair_m(mesh, static.zz)
@@ -121,23 +126,40 @@ def compute_dyn_tend(state, save, static, mesh, vert, nl, rk_step: int,
             mesh, state.pressure_p, state.ke, state.theta_m, state.w, state.rw)
     rw_e = 0.5 * (rw1 + rw2)                                           # [K+1, E]
 
-    # ---- horizontal 3rd-order advective edge values: advCellsForEdge slot
-    # reductions over the neighbour slots; slots 0/1 are cell1/cell2 and
-    # their theta/w values are the edge pairs above ----
+    # ---- horizontal 3rd-order advective edge values ----
     ru_edge_w = st.interface_interp(state.ru, fzm, fzp)                # [K+1, E]
-    a2 = mesh.advCellsForEdge[:, 2:]
-    c_n, c3_n = mesh.adv_coefs[:, 2:], mesh.adv_coefs_3rd[:, 2:]
-    ((bt, tt), (bw, tw)) = st.slot_reduce(
-        a2, [(state.theta_m, [c_n, c3_n]), (state.w, [c_n, c3_n])])
-    c0, c1 = mesh.adv_coefs[:, 0][None, :], mesh.adv_coefs[:, 1][None, :]
-    d0, d1 = (mesh.adv_coefs_3rd[:, 0][None, :],
-              mesh.adv_coefs_3rd[:, 1][None, :])
-    bt = c0 * tm1 + c1 * tm2 + bt
-    tt = d0 * tm1 + d1 * tm2 + tt
-    bw = c0 * w1 + c1 * w2 + bw
-    tw = d0 * w1 + d1 * w2 + tw
-    flux_arr_t = bt + torch.sign(state.ru) * tt
-    flux_arr_w = bw + torch.sign(ru_edge_w) * tw
+    if cell_form:
+        # per-cell directional Hessians + flat slot gathers (identical
+        # arithmetic to adv_coefs . q)
+        Dc_t, Dc_w = st.dir_second_deriv(mesh.dirHess, mesh.cellsOnCell,
+                                         state.theta_m, state.w)
+        D1t, D2t = st.edge_slot_pair(Dc_t, coe, mesh.slotOnCell)
+        D1w, D2w = st.edge_slot_pair(Dc_w, coe, mesh.slotOnCell)
+        adv_scale = (mesh.dvEdge * mesh.dcEdge ** 2 / 12.0)[None, :]   # [1, E]
+        c3 = nl.config_coef_3rd_order
+        flux_arr_t = (0.5 * mesh.dvEdge[None, :] * (tm1 + tm2)
+                      - adv_scale * ((D1t + D2t)
+                                     + torch.sign(state.ru) * c3 * (D1t - D2t)))
+        flux_arr_w = (0.5 * mesh.dvEdge[None, :] * (w1 + w2)
+                      - adv_scale * ((D1w + D2w)
+                                     + torch.sign(ru_edge_w) * c3 * (D1w - D2w)))
+    else:
+        # advCellsForEdge slot reductions over the neighbour slots; slots
+        # 0/1 are cell1/cell2 and their theta/w values are the edge pairs
+        # above
+        a2 = mesh.advCellsForEdge[:, 2:]
+        c_n, c3_n = mesh.adv_coefs[:, 2:], mesh.adv_coefs_3rd[:, 2:]
+        ((bt, tt), (bw, tw)) = st.slot_reduce(
+            a2, [(state.theta_m, [c_n, c3_n]), (state.w, [c_n, c3_n])])
+        c0, c1 = mesh.adv_coefs[:, 0][None, :], mesh.adv_coefs[:, 1][None, :]
+        d0, d1 = (mesh.adv_coefs_3rd[:, 0][None, :],
+                  mesh.adv_coefs_3rd[:, 1][None, :])
+        bt = c0 * tm1 + c1 * tm2 + bt
+        tt = d0 * tm1 + d1 * tm2 + tt
+        bw = c0 * w1 + c1 * w2 + bw
+        tw = d0 * w1 + d1 * w2 + tw
+        flux_arr_t = bt + torch.sign(state.ru) * tt
+        flux_arr_w = bw + torch.sign(ru_edge_w) * tw
 
     # ---- perturbation theta flux needs theta_m_save edge values first ----
     if rk_step > 0:
@@ -152,6 +174,9 @@ def compute_dyn_tend(state, save, static, mesh, vert, nl, rk_step: int,
     if rk_step > 0:
         specs.append((pert, [sign_dv]))
     red = st.slot_reduce_m(mesh, eoc, specs)
+    if cell_form:
+        gu_slots = st.slot_gather(eoc, state.u)
+        gupv_slots = st.slot_gather(eoc, state.u * state.pv_edge)
     h_divergence = red[0][0] * mesh.invAreaCell[None, :]
     tend_w = -red[1][0]                                                # [K+1, C]
     tend_theta = -red[2][0]                                            # [K, C]
@@ -198,8 +223,18 @@ def compute_dyn_tend(state, save, static, mesh, vert, nl, rk_step: int,
 
     # nonlinear Coriolis / PV flux (Ringler et al JCP 2009):
     #   q[e] = sum_w W[e,w] * u[eoe] * 0.5*(pv[e] + pv[eoe])
-    # split into the two weighted sums of u and u*pv computed above
-    q = 0.5 * state.pv_edge * su + 0.5 * supv
+    # split into 0.5*pv[e]*(sum W u) + 0.5*(sum W u*pv)
+    if cell_form:
+        # both sums come from the per-cell tangential matrices applied to
+        # the slot-gathered u / u*pv values, read back per edge by slot-pair
+        # gathers
+        t_u = st.cell_tangential(mesh.tanWeights, gu_slots)
+        t_upv = st.cell_tangential(mesh.tanWeights, gupv_slots)
+        tu1, tu2 = st.edge_slot_pair(t_u, coe, mesh.slotOnCell)
+        tupv1, tupv2 = st.edge_slot_pair(t_upv, coe, mesh.slotOnCell)
+        q = 0.5 * state.pv_edge * (tu1 + tu2) + 0.5 * (tupv1 + tupv2)
+    else:
+        q = 0.5 * state.pv_edge * su + 0.5 * supv
 
     tend_u = tend_u + state.rho_edge * (q - (ke2 - ke1) * mesh.invDcEdge[None, :]) \
         - state.u * 0.5 * (hd1 + hd2)

@@ -40,8 +40,9 @@ def _convert(cls, arrays: dict, dtype, device):
 def from_jax_numpy(mesh_arrays: dict, vert: dict, static: dict, state: dict,
                    device="cuda", dtype=torch.float32):
     """Returns (MeshArrays, VerticalArrays, StaticState, State) on `device`
-    in `dtype` (index tables int32). Keys the port's containers do not have
-    (the cell-form tables) are ignored; a missing field raises."""
+    in `dtype` (index tables int32), the cell-form tables, `scalars`
+    [nS, K, C] and `rainnc` [C] included (None stays None). Keys the port's
+    containers do not have are ignored; a missing field raises."""
     return (_convert(core_state.MeshArrays, mesh_arrays, dtype, device),
             _convert(core_state.VerticalArrays, vert, dtype, device),
             _convert(core_state.StaticState, static, dtype, device),

@@ -1,6 +1,6 @@
 """mpas_tpu_torch's numpy copies against mpas_tpu: the mesh, its coefficients,
-the vertical grid and the JW initial state are equal array for array; the
-namelist has the same names and defaults; the package imports no JAX."""
+the vertical grid and the initial state of every case (JW, mountain wave,
+squall line) are equal array for array; the namelist has the same names and defaults; the package imports no JAX."""
 
 import dataclasses
 import subprocess
@@ -13,6 +13,8 @@ import pytest
 from mpas_tpu import config as j_config
 from mpas_tpu import constants as j_constants
 from mpas_tpu.core.vertical import make_vertical_grid as j_vgrid
+from mpas_tpu.init import mountain_wave as j_mw
+from mpas_tpu.init import squall as j_sq
 from mpas_tpu.init.jw import init_jw as j_init_jw
 from mpas_tpu.mesh import coefficients as j_coef
 from mpas_tpu.mesh.generator import generate_mesh as j_generate
@@ -20,6 +22,8 @@ from mpas_tpu.mesh.generator import generate_mesh as j_generate
 from mpas_tpu_torch import config as t_config
 from mpas_tpu_torch import constants as t_constants
 from mpas_tpu_torch.core.vertical import make_vertical_grid as t_vgrid
+from mpas_tpu_torch.init import mountain_wave as t_mw
+from mpas_tpu_torch.init import squall as t_sq
 from mpas_tpu_torch.init.jw import init_jw as t_init_jw
 from mpas_tpu_torch.mesh import coefficients as t_coef
 from mpas_tpu_torch.mesh.generator import generate_mesh as t_generate
@@ -109,6 +113,66 @@ def test_jw_init_equal(meshes, deriv_twos, pert):
     assert_same(ij, it, "init")
 
 
+SMALL_PLANET = dict(config_coriolis=False, config_vertical_stretch=1.0,
+                    config_sphere_radius=6371229.0 / 200.0,
+                    config_nvertlevels=16, config_ztop=20000.0,
+                    config_zd=14000.0, config_xnutr=0.3)
+
+
+@pytest.fixture(scope="module")
+def small_planet():
+    """Level-3 meshes of the reduced planet and their deriv_two, both
+    packages."""
+    r = SMALL_PLANET["config_sphere_radius"]
+    mj = j_generate(levels=3, lloyd_iterations=3, sphere_radius=r)
+    mt = t_generate(levels=3, lloyd_iterations=3, sphere_radius=r)
+    return (mj, j_coef.compute_deriv_two(mj)), (mt, t_coef.compute_deriv_two(mt))
+
+
+@pytest.mark.parametrize("changes", [
+    dict(), dict(config_mtn_h0=500.0, config_mtn_halfwidth=20000.0,
+                 config_mtn_wavelength=80000.0, config_mtn_u0=10.0)],
+    ids=["defaults", "wide_mountain"])
+def test_mountain_wave_init_equal(small_planet, changes):
+    kw = dict(SMALL_PLANET, config_init_case=21, **changes)
+    (mj, dj), (mt, dt) = small_planet
+    sj, ij = j_mw.init_mountain_wave(mj, j_vgrid(16, 20000.0, 1.0),
+                                     j_config.Namelist(**kw), dj)
+    st, it = t_mw.init_mountain_wave(mt, t_vgrid(16, 20000.0, 1.0),
+                                     t_config.Namelist(**kw), dt)
+    assert np.abs(sj["zgrid"][:, 0]).max() > 100.0       # there is a mountain
+    assert_same(sj, st, "static")
+    assert_same(ij, it, "init")
+    nl = t_config.Namelist(**kw)
+    assert np.array_equal(j_mw.schar_mountain(mj, nl),
+                          t_mw.schar_mountain(mt, nl))
+    x = np.linspace(-2e4, 2e4, 64)
+    z = np.array([500.0, 4000.0])
+    assert np.array_equal(j_mw.linear_schar_solution(x, z, nl),
+                          t_mw.linear_schar_solution(x, z, nl))
+
+
+@pytest.mark.parametrize("changes", [
+    dict(config_moisture=True), dict(config_moisture=False),
+    dict(config_moisture=True, config_sq_bubble_dtheta=0.0,
+         config_sq_shear_u=0.0)], ids=["moist", "dry", "no_bubble_no_shear"])
+def test_squall_init_equal(small_planet, changes):
+    kw = dict(SMALL_PLANET, config_init_case=22, **changes)
+    (mj, dj), (mt, dt) = small_planet
+    sj, ij = j_sq.init_squall(mj, j_vgrid(16, 20000.0, 1.0),
+                              j_config.Namelist(**kw), dj)
+    st, it = t_sq.init_squall(mt, t_vgrid(16, 20000.0, 1.0),
+                              t_config.Namelist(**kw), dt)
+    assert (ij["qv"].max() > 0.01) == kw["config_moisture"]
+    assert_same(sj, st, "static")
+    assert_same(ij, it, "init")
+    z = np.linspace(0.0, 18000.0, 50)
+    nl = t_config.Namelist(**kw)
+    for a, b in zip(j_sq.wk_sounding(z, nl), t_sq.wk_sounding(z, nl),
+                    strict=True):
+        assert np.array_equal(a, b)
+
+
 def test_package_imports_no_jax():
     """Importing mpas_tpu_torch and every submodule loads neither jax nor
     mpas_tpu."""
@@ -121,7 +185,7 @@ def test_package_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'mpas_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 28, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

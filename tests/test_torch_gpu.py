@@ -7,9 +7,10 @@ on a machine with a card and without JAX it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Setup: generate_mesh(levels=3, lloyd_iterations=2) (642 cells), 8 levels,
-float64 on the CPU, moved to the card in the dtype under test; Kernel 1
-also on probes.acoustic_inputs at synthetic shapes; Kernels 3 and 4 on
-renumber_mesh(generate_mesh(levels=4)) (2562 cells)."""
+float64 on the CPU, moved to the card in the dtype under test (also one
+moist and one cell-form step, and Kernel 2 at the call shapes they add);
+Kernel 1 also on probes.acoustic_inputs at synthetic shapes; Kernels 3 and
+4 on renumber_mesh(generate_mesh(levels=4)) (2562 cells)."""
 
 import numpy as np
 import pytest
@@ -387,4 +388,52 @@ def test_two_aligned_steps_on_the_card_match_the_cpu(cuda, cpu_model):
     cpu.step(2)
     assert K1.launches == 8 and K2.launches > 0
     for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
+        assert rel_err(getattr(cpu.state, n), getattr(gpu.state, n).cpu()) < 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("table,n_from,Kt,S", [
+    ("advCellsForEdge", "nCells", 246, 2),      # 6 species x 41 levels folded
+    ("edgesOnCell", "nEdges", 246, 1),          # their flux divergence
+    ("verticesOnCell", "nVertices", 41, 1)])    # Hollingsworth / APVM sums
+def test_gather_reduce_kernel_at_the_moist_call_shapes(cuda, cpu_model, dtype,
+                                                       table, n_from, Kt, S):
+    """The call shapes the moist and cell-form steps add: the species folded
+    into the level axis, and the vertex -> cell reduction."""
+    mesh = cpu_model.mesh_arrays
+    idx = getattr(mesh, table).to(cuda)
+    rng = np.random.default_rng(Kt + S)
+    tbl = torch.from_numpy(rng.normal(size=(Kt, getattr(mesh, n_from)))
+                           ).to(cuda, dtype)
+    w = torch.from_numpy(rng.normal(size=(S,) + tuple(idx.shape))
+                         ).to(cuda, dtype)
+    K2.launches = 0
+    out = K2.gather_reduce(tbl, idx, w)
+    ref = K2.gather_reduce_plain(tbl, idx, w)
+    mag = K2.gather_reduce_plain(tbl.abs(), idx, w.abs())
+    torch.cuda.synchronize()
+    assert K2.launches == 1
+    eps = torch.finfo(dtype).eps
+    assert bool(((out - ref).abs() <= 4 * (idx.shape[1] + 1) * eps * mag).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("changes", [
+    dict(config_moisture=True, config_microphysics="wsm6",
+         config_pbl="ysu_lite"),
+    dict(config_cell_form_ops=True, config_hollingsworth=True,
+         config_apvm_upwinding=0.5)], ids=["moist", "cell_form"])
+def test_one_moist_step_on_the_card_matches_the_cpu(cuda, cpu_model, changes):
+    nl = Namelist(**KW, **changes)
+    gpu = build_model(nl, cpu_model.mesh, device="cuda")
+    cpu = build_model(nl, cpu_model.mesh, device="cpu")
+    K1.launches = K2.launches = 0
+    gpu.step(1)
+    cpu.step(1)
+    assert K1.launches == 4 and K2.launches > 27
+    names = ["u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"]
+    if cpu.state.scalars is not None:
+        names += ["scalars", "rainnc"]
+    for n in names:
         assert rel_err(getattr(cpu.state, n), getattr(gpu.state, n).cpu()) < 1e-9

@@ -266,7 +266,11 @@ def test_every_table_of_the_step_takes_the_direct_form(orient, dtype):
     tables = {"edgesOnCell": (m.edgesOnCell, m.nEdges),
               "edgesOnVertex": (m.edgesOnVertex, m.nEdges),
               "edgesOnEdge": (m.edgesOnEdge, m.nEdges),
-              "advCellsForEdge[:, 2:]": (m.advCellsForEdge[:, 2:], m.nCells)}
+              "advCellsForEdge[:, 2:]": (m.advCellsForEdge[:, 2:], m.nCells),
+              # the moist and cell-form steps: scalar transport reads every
+              # advection slot, Hollingsworth / APVM reduce over vertices
+              "advCellsForEdge": (m.advCellsForEdge, m.nCells),
+              "verticesOnCell": (m.verticesOnCell, m.nVertices)}
     if orient:
         tables["eoc_split.idx"] = (m.eoc_split.idx, m.nEdges)
     assert set(m.gather_sectors) == set(tables)

@@ -8,7 +8,8 @@ CPU, on generate_mesh(levels=3, lloyd_iterations=2) (642 cells), 8 levels.
     per-op tests hold 1e-12; two steps of ~40 stencil reductions each, whose
     sums run in another order, grow the round-off to ~1e-13 (w, the smallest
     field, measured 2e-13), so 1e-10 leaves room without hiding a fault;
-  - the options the port does not implement raise."""
+  - every namelist option of the single-device step builds and steps; what
+    is still unported (the regional boundary conditions, the halo) raises."""
 
 import dataclasses
 
@@ -113,8 +114,53 @@ def test_build_model_on_cuda_without_a_card_raises():
 @pytest.mark.parametrize("change", [
     dict(config_init_case=21), dict(config_cell_form_ops=True),
     dict(config_hollingsworth=True), dict(config_moisture=True),
-    dict(config_microphysics="kessler"), dict(config_apvm_upwinding=0.5)])
-def test_unported_options_raise(change):
-    with pytest.raises(NotImplementedError):
-        build_model(Namelist(**KW, **change),
-                    generate_mesh(levels=2, lloyd_iterations=0), device="cpu")
+    dict(config_microphysics="kessler"), dict(config_apvm_upwinding=0.5),
+    dict(config_microphysics="wsm6lite"),
+    dict(config_moisture=True, config_microphysics="wsm6"),
+    dict(config_pbl="ysu_lite"), dict(config_scalar_advection=True),
+    dict(config_moisture=True, config_scalar_advection=True),
+    dict(config_init_case=22, config_moisture=True)],
+    ids=lambda c: "-".join(f"{k[7:]}={v}" for k, v in c.items()))
+def test_ported_options_build_and_step(change):
+    """Each of these options builds on the CPU, takes a
+    step and stays finite; microphysics brings its species, rainnc, scalar
+    transport and a substep count."""
+    model = build_model(Namelist(**KW, **change),
+                        generate_mesh(levels=2, lloyd_iterations=0),
+                        device="cpu")
+    nl = model.namelist
+    n_species = {"kessler": 3, "wsm6lite": 5, "wsm6": 6}.get(
+        nl.config_microphysics, 1 if nl.config_moisture else 0)
+    if n_species:
+        assert model.state.scalars.shape[0] == n_species
+        assert bool((model.state.scalars[0] > 0).any()) == nl.config_moisture
+    else:
+        assert model.state.scalars is None
+    if nl.config_microphysics != "off":
+        assert nl.config_scalar_advection and nl.config_kessler_nfall >= 1
+        assert model.state.rainnc.shape == (model.mesh.nCells,)
+    else:
+        assert model.state.rainnc is None
+    model.step(1)
+    for f in dataclasses.fields(model.state):
+        t = getattr(model.state, f.name)
+        assert t is None or bool(torch.isfinite(t).all()), f.name
+    assert model.summarize()["nan_detected"] == 0.0
+
+
+@pytest.mark.parametrize("what", ["config_apply_lbcs", "halo"])
+def test_unported_options_raise(what):
+    """What is still unported raises: the regional lateral boundary
+    conditions when the model is built and in the step, the halo in the
+    step."""
+    mesh = generate_mesh(levels=2, lloyd_iterations=0)
+    lbc = Namelist(**KW, config_apply_lbcs=True)
+    if what == "config_apply_lbcs":
+        with pytest.raises(NotImplementedError, match=what):
+            build_model(lbc, mesh, device="cpu")
+    m = build_model(Namelist(**KW), mesh, device="cpu")
+    nl, halo = (lbc, None) if what == "config_apply_lbcs" else (m.namelist,
+                                                                object())
+    with pytest.raises(NotImplementedError, match=what):
+        srk3.atm_srk3(m.state, m.static, m.mesh_arrays, m.vert, nl, 720.0,
+                      halo=halo)
