@@ -41,6 +41,12 @@ Phases, each printing one JSON line:
      profile_moist: PROFILE_STEPS traced steps and the step's three moist
      parts (scalar transport, microphysics, PBL) traced one by one, the dry
      part being what is left;
+  7c. radiation: on the same model, Model.apply_physics (the CAM-style SW/LW
+     radiation, radiation every RADT_STEPS steps as the CLI's default) once
+     to warm up, then one call timed (CUDA events and the host clock, peak
+     memory) and one traced (launches, kernel device time); the heating
+     rates, OLR and cloud fraction; then RADIATION_STEPS steps with the
+     heating applied;
   8. agreement: 2 steps on the card and on the CPU at x1.2562, float64,
      port against port: dry JW on the default numbering and (agreement_
      orient) with config_renumber_mesh and config_orient_edges; JW with
@@ -48,8 +54,16 @@ Phases, each printing one JSON line:
      dry JW in cell form with the Hollingsworth correction and APVM
      upwinding (agreement_cellform); the mountain wave (agreement_mountain)
      and the squall line with WSM6 (agreement_squall) on a reduced planet;
+     agreement_radiation: JW + WSM6 + PBL with condensate seeded across the
+     freezing level (probes.seeded_condensate), one radiation call and 2
+     steps, rt_diabatic_tend, every diagnostic and every state field;
   8b. squall: 60 float32 steps of the squall line on the card (2562 cells,
      16 levels): a convective updraft, condensate, no negative rain;
+  8c. cli: `python -m mpas_tpu_torch`'s main in this process on the card: a
+     full-width moist run with radiation, history and checkpoints (its own
+     ms/step, the files' sizes, launches of Kernels 1 and 2), and a restart
+     leg at x1.2562, float64: 4 straight steps against 2 + restart + 2,
+     whose final histories must be bit-equal;
   9. windowed_study: Kernel 3 (windowed gather-reduce) against its plain
      version, Kernel 2 and the index_select loop on the RCM-renumbered
      x1.40962 mesh at Kst = 48 and 168 levels (probes.windowed_study), and
@@ -102,6 +116,13 @@ K1_FORCED_TILES = ((4, 64), (8, 3), (16, 16), (32, 1), (32, 16))
 # tiles timed in turns beside the wrapper's choice at the step's shape
 K1_TIMED_TILES = ((32, 8), (32, 14), (16, 14), (16, 21), (8, 21), (8, 42))
 TAKE_MIXED_FRACTIONS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
+RADIATION_JULIAN = 80.25   # equinox, 06 UTC: half the planet in daylight
+RADT_STEPS = 5             # the CLI's default --radt-steps
+RADIATION_STEPS = 2        # steps taken with the heating applied
+CLI_STEPS = 10
+# the namelist of the CLI's runs: the moist path of main_path_moist
+CLI_NAMELIST = {"config_moisture": True, "config_microphysics": "wsm6",
+                "config_pbl": "ysu_lite", "config_jw_u_perturbation": 1.0}
 
 
 def emit(obj):
@@ -698,6 +719,203 @@ def agreement(nl, mesh, what, torch):
         raise RuntimeError(f"{what}: card and CPU disagree: {bad}")
 
 
+def rel_err(a, b, torch):
+    """max |a - b| / max |b| of two tensors or arrays (host copies)."""
+    a = torch.as_tensor(a).cpu().double()
+    b = torch.as_tensor(b).cpu().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def radiation_call(model, phys, torch):
+    """Model.apply_physics at full width: a warm-up call, one call timed
+    with CUDA events and on the host clock (the call ends by copying its
+    diagnostics to the host, so both span the device's work), with its peak
+    memory over what the model held, and one traced call: device launches
+    (kernels, and copies apart), kernel device time, busy share. Then the
+    diagnostics of the timed call."""
+    call = lambda: model.apply_physics(phys, julian=RADIATION_JULIAN)
+    call()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    pd = call()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    event_ms = start.elapsed_time(end)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    events, traced_us = trace(call, torch)
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if e not in copies]
+    rt = pd["rthraten"] * 86400.0
+    out = dict(
+        julian=RADIATION_JULIAN, wall_ms=wall_ms, event_ms=event_ms,
+        launches=len(kernels), copies=len(copies),
+        kernel_device_ms=sum(e.time_range.end - e.time_range.start
+                             for e in kernels) / 1e3,
+        traced_wall_ms=traced_us / 1e3,
+        device_busy_share=busy_us(events) / traced_us,
+        peak_mem_over_model_gb=peak_gb,
+        rthraten_k_per_day=[float(rt.min()), float(rt.max())],
+        qrs_max_k_per_day=float(pd["qrs"].max() * 86400.0),
+        qrl_min_k_per_day=float(pd["qrl"].min() * 86400.0),
+        olr_mean=float(pd["olr"].mean()), cldfra_max=float(pd["cldfra"].max()),
+        daylit_share=float((pd["solin"] > 0).mean()))
+    if not all(bool((v == v).all()) for v in pd.values()):
+        raise RuntimeError(f"radiation: NaN in the diagnostics: {out}")
+    if not (0.0 < abs(rt).max() < 200.0 and 150.0 < out["olr_mean"] < 350.0
+            and 0.0 <= out["cldfra_max"] <= 1.0):
+        raise RuntimeError(f"radiation: diagnostics out of range: {out}")
+    return out
+
+
+def agreement_radiation(nl, mesh, torch):
+    """One radiation call and 2 float64 steps on the card and on the CPU
+    from the same state, JW with condensate seeded across the freezing level
+    (probes.seeded_condensate on the CPU model, its scalars copied to the
+    card): rt_diabatic_tend, every diagnostic of the call and every state
+    field after the steps within AGREE_REL."""
+    from mpas_tpu_torch.dynamics.model import build_model
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.physics.driver import physics_init
+    from mpas_tpu_torch.probes import seeded_condensate
+    import dataclasses
+    cpu = build_model(nl, mesh, device="cpu")
+    gpu = build_model(nl, mesh, device="cuda")
+    cpu.state = seeded_condensate(cpu.state, seed=0)
+    gpu.state = gpu.state.replace(scalars=cpu.state.scalars.cuda())
+    phys = physics_init()
+    d_gpu = gpu.apply_physics(phys, julian=RADIATION_JULIAN)
+    d_cpu = cpu.apply_physics(phys, julian=RADIATION_JULIAN)
+    agree = {f"radiation.{k}": rel_err(d_gpu[k], d_cpu[k], torch)
+             for k in d_cpu}
+    agree["rt_diabatic_tend"] = rel_err(gpu.state.rt_diabatic_tend,
+                                        cpu.state.rt_diabatic_tend, torch)
+    acoustic_column.launches = gather_reduce.launches = 0
+    gpu.step(2)
+    cpu.step(2)
+    launches = {"acoustic_column": acoustic_column.launches,
+                "gather_reduce": gather_reduce.launches}
+    for f in dataclasses.fields(cpu.state):
+        b = getattr(cpu.state, f.name)
+        if b is not None:
+            agree[f.name] = rel_err(getattr(gpu.state, f.name), b, torch)
+    emit({"phase": "agreement_radiation", "cells": mesh.nCells,
+          "levels": nl.config_nvertlevels, "dtype": nl.dtype, "steps": 2,
+          "microphysics": nl.config_microphysics, "pbl": nl.config_pbl,
+          "launches": launches, "cldfra_max": float(d_cpu["cldfra"].max()),
+          "condensate_max": float(cpu.state.scalars[1:].max()),
+          "summary_card": gpu.summarize(), "max_rel_err": agree,
+          "worst": max(agree.values()), "limit_rel": AGREE_REL})
+    bad = {k: v for k, v in agree.items() if not v <= AGREE_REL}
+    if bad:
+        raise RuntimeError(f"agreement_radiation: card and CPU disagree: {bad}")
+    if launches["acoustic_column"] <= 0 or launches["gather_reduce"] <= 0:
+        raise RuntimeError(f"agreement_radiation: a kernel never launched: "
+                           f"{launches}")
+
+
+def cli_runs(torch):
+    """`python -m mpas_tpu_torch`'s main, in this process, on the card, in a
+    temporary directory that also holds $HOME (where the CLI caches its
+    generated meshes) for the duration: the full-width moist run with
+    radiation, history and checkpoints, then the restart leg. Returns the
+    phase's line; raises on a non-zero exit or a failed check."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from mpas_tpu_torch import __main__ as cli
+    from mpas_tpu_torch.mesh.netcdf_io import read_netcdf
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    home = os.environ.get("HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HOME"] = tmp
+        try:
+            cfg = os.path.join(tmp, "moist.json")
+            with open(cfg, "w") as f:
+                json.dump(CLI_NAMELIST, f)
+            path = lambda name: os.path.join(tmp, name)
+
+            def run(*flags):
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main([*flags, "--config", cfg, "--device", "cuda"])
+                log = buf.getvalue()
+                if rc != 0 or "NaN" in log:
+                    raise RuntimeError(f"cli {flags}: exit {rc}\n{log}")
+                return log, time.perf_counter() - t0
+
+            acoustic_column.launches = gather_reduce.launches = 0
+            log, seconds = run(
+                "--grid", "generate:6", "--levels", "41", "--dt", "300",
+                "--dtype", "float32", "--physics", "--radt-steps",
+                str(RADT_STEPS), "--steps", str(CLI_STEPS),
+                "--history-every", "5", "--checkpoint-every", "5",
+                "--output", path("hist.nc"), "--checkpoint-path",
+                path("ck.npz"))
+            launches = {"acoustic_column": acoustic_column.launches,
+                        "gather_reduce": gather_reduce.launches}
+            if any(v <= 0 for v in launches.values()):
+                raise RuntimeError(f"cli: a kernel never launched: {launches}")
+            timing = re.search(r"(\d+) steps in ([\d.]+)s \(([\d.]+) ms/step",
+                               log)
+            parts = {k: float(v) for k, v in re.findall(
+                r"(radiation|history|checkpoints) ([\d.]+)s", log)}
+            hist = read_netcdf(path("hist.nc"))
+            if hist["_dims"]["Time"] != 2 or not all(
+                    bool((v == v).all()) for k, v in hist.items()
+                    if k != "_dims"):
+                raise RuntimeError(f"cli: history has {hist['_dims']} or NaN")
+            full = dict(
+                cells=hist["_dims"]["nCells"], levels=41, dtype="float32",
+                steps=CLI_STEPS, radt_steps=RADT_STEPS,
+                ms_per_step_logged=float(timing.group(3)),
+                loop_seconds_logged=float(timing.group(2)),
+                loop_parts_seconds_logged=parts,
+                ms_per_step_without_parts=(float(timing.group(2))
+                                           - sum(parts.values()))
+                * 1e3 / CLI_STEPS,
+                process_seconds=seconds, launches=launches,
+                history_bytes=os.path.getsize(path("hist.nc")),
+                history_dims=hist["_dims"],
+                checkpoint_bytes=os.path.getsize(path("ck.npz")),
+                log_tail=log.strip().splitlines()[-6:])
+
+            # the restart leg: 4 straight steps against 2 + restart + 2
+            leg = ["--grid", "generate:4", "--levels", "26", "--dtype",
+                   "float64", "--physics", "--radt-steps", "2",
+                   "--output-full-3d"]
+            run(*leg, "--steps", "4", "--output", path("a.nc"),
+                "--checkpoint-path", path("a.npz"))
+            run(*leg, "--steps", "2", "--checkpoint-every", "2", "--output",
+                path("b1.nc"), "--checkpoint-path", path("b.npz"))
+            run(*leg, "--steps", "2", "--restart", path("b.npz"), "--output",
+                path("b2.nc"), "--checkpoint-path", path("b2.npz"))
+            a, b = read_netcdf(path("a.nc")), read_netcdf(path("b2.nc"))
+            diff = {k: rel_err(b[k].astype("float64"), a[k].astype("float64"),
+                               torch)
+                    for k in a if k != "_dims"}
+            unequal = sorted(k for k in a if k != "_dims"
+                             and not (a[k] == b[k]).all())
+        finally:
+            if home is None:
+                del os.environ["HOME"]
+            else:
+                os.environ["HOME"] = home
+    restart = dict(cells=a["_dims"]["nCells"], levels=26, dtype="float64",
+                   bit_equal=not unequal, unequal_fields=unequal,
+                   max_rel_diff=max(diff.values()), limit_rel=AGREE_REL)
+    if unequal and not restart["max_rel_diff"] <= AGREE_REL:
+        raise RuntimeError(f"cli restart leg: resumed run differs: {diff}")
+    return {"full_width": full, "restart": restart}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -839,6 +1057,24 @@ def main():
     emit({"phase": "profile_moist", **prof_m,
           "parts": profile_moist_parts(model, prof_m, torch)})
     check_moisture(model.state, "profile_moist")
+
+    # 7c. radiation on the moist model, and steps with its heating
+    from mpas_tpu_torch.physics.driver import physics_init
+    rad = timed(lambda: radiation_call(model, physics_init(), torch))
+    rad_steps = counted_steps(model, torch, RADIATION_STEPS,
+                              k2_more_than=DRY_K2_PER_STEP)
+    check_summary(rad_steps["summary"], "radiation")
+    rt = model.state.rt_diabatic_tend
+    if not (bool(rt.isfinite().all()) and float(rt.abs().max()) > 0.0):
+        raise RuntimeError("radiation: rt_diabatic_tend is zero or not "
+                           "finite after the steps")
+    del rad_steps["gather_sectors"], rad_steps["ms_per_step"]
+    emit({"phase": "radiation", "cells": model.mesh.nCells, "levels": 41,
+          "dtype": "float32", **rad, "radt_steps": RADT_STEPS,
+          "radiation_ms_per_step": rad["wall_ms"] / RADT_STEPS,
+          "moist_ms_per_step_median": moist["ms_per_step_median"],
+          "steps_after": rad_steps,
+          "moisture": check_moisture(model.state, "radiation")})
     del model
     torch.cuda.empty_cache()
 
@@ -873,6 +1109,9 @@ def main():
     mesh4s = generate_mesh(levels=4, sphere_radius=radius)
     agreement(nl_mw, mesh4s, "agreement_mountain", torch)
     agreement(nl_sq, mesh4s, "agreement_squall", torch)
+    agreement_radiation(nl6.replace(config_moisture=True,
+                                    config_microphysics="wsm6",
+                                    config_pbl="ysu_lite"), mesh4, torch)
 
     # 8b. the squall line on the card, float32: convection must develop
     model = build_model(nl_sq.replace(dtype="float32"), mesh4s, device="cuda")
@@ -894,6 +1133,11 @@ def main():
     if not condensate > 1e-6:
         raise RuntimeError(f"squall: no condensate formed ({condensate})")
     del model
+    torch.cuda.empty_cache()
+
+    # 8c. the command line on the card
+    cli = timed(lambda: cli_runs(torch))
+    emit({"phase": "cli", **cli})
     torch.cuda.empty_cache()
 
     # 9. the windowed study on the RCM-renumbered x1.40962 mesh
@@ -961,6 +1205,7 @@ def main():
          "launches": launches["acoustic_column"],
          "launches_orient": orient["launches"]["acoustic_column"],
          "launches_moist": moist["launches"]["acoustic_column"],
+         "launches_cli": cli["full_width"]["launches"]["acoustic_column"],
          "max_abs_err": k1["float32"]["max_abs_err"],
          "max_rel_err": k1["float32"]["max_rel_err"],
          "ms": k1["float32"]["ms"],
@@ -986,6 +1231,7 @@ def main():
          "launches": launches["gather_reduce"],
          "launches_orient": orient["launches"]["gather_reduce"],
          "launches_moist": moist["launches"]["gather_reduce"],
+         "launches_cli": cli["full_width"]["launches"]["gather_reduce"],
          "moist_shapes": [[r["Kt"], r["N"], r["R"], r["M"], r["S"]]
                           for r in k2_moist],
          "row_form_launches": main["gather_reduce_row_form_launches"],

@@ -30,6 +30,7 @@ from ..mesh.orient import orient_edges
 from ..mesh.renumber import renumber_mesh
 from ..ops import diagnostics as diag_ops
 from ..physics import kessler, wsm6
+from ..physics.driver import make_radiation_fn, time_params
 from . import srk3
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -53,6 +54,8 @@ class Model:
     step_count: int = 0
     init_fields: dict = field(default_factory=dict)  # host-side init extras
     setup_seconds: dict = field(default_factory=dict)  # build_model by stage
+    # the radiation closure, built at the first apply_physics
+    _radiation_fn: Optional[Callable] = field(default=None, repr=False)
 
     @property
     def dtype(self):
@@ -67,6 +70,42 @@ class Model:
             self.state = self.step_fn(self.state)
             self.step_count += 1
         return self.state
+
+    def apply_physics(self, phys, julian: float | None = None):
+        """Run the radiation driver on the current state and couple the
+        radiative heating into the dycore via rt_diabatic_tend (the
+        physics_driver -> atm_do_timestep coupling, atm_core.rg:64-68),
+        which the step consumes.
+
+        Called once per radiation interval, like MPAS's hourly radiation
+        cadence against 12-minute dynamics steps. `julian` defaults to the
+        model time in days. The columnar radiation keeps the CAM [cols,
+        pver] convention: the level-major fields go in as transposed views,
+        which the solver reads level-major again without a copy. Returns the
+        diagnostics as host numpy arrays ([C, K] or [C])."""
+        if julian is None:
+            julian = self.step_count * self.namelist.config_dt / 86400.0
+        if self._radiation_fn is None:
+            self._radiation_fn = make_radiation_fn(phys, self.dtype,
+                                                   self.device)
+        out = diag_ops.output_diagnostics(self.state, self.static)
+        pressure = out["pressure"]                       # [K, C]
+        vg = self.vgrid
+        sp = (vg.cf1 * pressure[0] + vg.cf2 * pressure[1]
+              + vg.cf3 * pressure[2])
+        s = self.state
+        qv = s.scalars[0].T if s.scalars is not None else None
+        qc = (s.scalars[1].T if s.scalars is not None
+              and s.scalars.shape[0] > 1 else None)
+        tp = time_params(phys, julian, self.dtype, self.device)
+        rthraten, diags = self._radiation_fn(
+            self.mesh_arrays.latCell, self.mesh_arrays.lonCell,
+            s.theta_m.T, s.exner.T, pressure.T, sp, qv, qc, tp)
+        self.state = s.replace(
+            rt_diabatic_tend=rthraten.T.contiguous().to(self.dtype))
+        pd = {k: v.cpu().numpy() for k, v in diags.items()}
+        pd["rthraten"] = rthraten.cpu().numpy()
+        return pd
 
     def summarize(self):
         return {k: float(v) for k, v in

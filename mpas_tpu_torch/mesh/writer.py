@@ -91,7 +91,11 @@ def generate_and_cache(levels: int, cache_dir: str = None,
                        sphere_radius: float = None, **kw) -> Mesh:
     """Generate (or load a cached) CVT mesh of the given refinement level.
     `sphere_radius` scales the unit-sphere cache on load (small-planet
-    DCMIP-style cases pass 6371229/X)."""
+    DCMIP-style cases pass 6371229/X). A freshly generated mesh is written
+    and read back, so every call returns the cached file's mesh: the scaling
+    to the unit sphere and back moves the coordinates and areas by rounding,
+    and a run resumed from a checkpoint must see the mesh of the run that
+    wrote it."""
     import os
     from .generator import generate_mesh
     from .. import constants
@@ -102,6 +106,5 @@ def generate_and_cache(levels: int, cache_dir: str = None,
     radius = sphere_radius or constants.sphere_radius
     if os.path.exists(path):
         return load_mesh(path, sphere_radius=radius)
-    mesh = generate_mesh(levels=levels, sphere_radius=radius, **kw)
-    save_grid(mesh, path)
-    return mesh
+    save_grid(generate_mesh(levels=levels, sphere_radius=radius, **kw), path)
+    return load_mesh(path, sphere_radius=radius)

@@ -19,6 +19,9 @@
   - `acoustic_inputs(K, C, seed)` makes Kernel 1's arguments at any shape
     from a numpy seed (`acoustic_args` puts them on a device), for the
     checks of the kernel at shapes the step does not give it.
+  - `seeded_condensate(state, seed)` puts condensate across the freezing
+    level into a moist state, for the checks that need cloud and ice (the
+    JW wave forms none in a few steps).
   - `compare_numberings(nl, mesh)` times the step on the default and on the
     ownership-aligned edge numbering in turns, both models on one card.
     `python -m mpas_tpu_torch.probes` runs it at full width (x1.40962, 41
@@ -39,6 +42,7 @@ import statistics
 import numpy as np
 import torch
 
+from . import constants
 from .dynamics.model import build_model, resolve_device
 from .ops import gather_reduce as gr
 from .ops import take_columns as tc
@@ -381,6 +385,34 @@ def gather_probe(K=83, C=40962, R=122880, M=10, device="cuda", seed=0):
     if dev.type == "cuda":
         row_c["forms"] = gather_forms(tbl, idx_slots, w)
     return {"A": row_a, "B": row_b, "C": row_c, "outputs": (a, b, c)}
+
+
+# the condensate species in the order of scalars[1:], each with its mixing
+# ratio [kg/kg] and the phase it takes: liquid where T > 268 K, ice where
+# 220 K < T < 273.15 K (so both between 268 and 273.15 K)
+CONDENSATE = (("qc", 4e-4, "liquid"), ("qr", 2e-4, "liquid"),
+              ("qi", 1.5e-4, "ice"), ("qs", 3e-4, "ice"), ("qg", 2e-4, "ice"))
+
+
+def seeded_condensate(state, seed=0, share=0.7):
+    """`state` with condensate across the freezing level: each species of
+    scalars[1:] (as many of CONDENSATE as the microphysics carries) gets
+    its mixing ratio where its phase can live, times a factor in [0.5, 1.5)
+    from a numpy seed, at a random `share` of the points and zero elsewhere.
+    The radiation's cloud optics then see cloudy and clear layers, liquid
+    and ice, and WSM6 runs its warm and its ice paths. The scalars are a
+    new tensor; the other fields are the state's own."""
+    s = state.scalars
+    t = state.theta_m / (1.0 + constants.rvord * s[0]) * state.exner
+    rng = np.random.default_rng(seed)
+    shape = (s.shape[0] - 1,) + tuple(t.shape)
+    factor = (0.5 + rng.random(shape)) * (rng.random(shape) < share)
+    factor = torch.from_numpy(factor).to(s.device, s.dtype)
+    new = s.clone()
+    for i, (_, q, phase) in enumerate(CONDENSATE[:s.shape[0] - 1]):
+        where = (t > 268.0) if phase == "liquid" else (t > 220.0) & (t < 273.15)
+        new[i + 1] = q * where.to(s.dtype) * factor[i]
+    return state.replace(scalars=new)
 
 
 def compare_numberings(nl, mesh):

@@ -10,7 +10,10 @@ Setup: generate_mesh(levels=3, lloyd_iterations=2) (642 cells), 8 levels,
 float64 on the CPU, moved to the card in the dtype under test (also one
 moist and one cell-form step, and Kernel 2 at the call shapes they add);
 Kernel 1 also on probes.acoustic_inputs at synthetic shapes; Kernels 3 and
-4 on renumber_mesh(generate_mesh(levels=4)) (2562 cells)."""
+4 on renumber_mesh(generate_mesh(levels=4)) (2562 cells). The radiation
+call on a state with seeded condensate, and the CLI (a short run with
+radiation, history and a checkpoint, and an exact restart from it), on the
+card."""
 
 import numpy as np
 import pytest
@@ -437,3 +440,60 @@ def test_one_moist_step_on_the_card_matches_the_cpu(cuda, cpu_model, changes):
         names += ["scalars", "rainnc"]
     for n in names:
         assert rel_err(getattr(cpu.state, n), getattr(gpu.state, n).cpu()) < 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_radiation_on_the_card_matches_the_cpu(cuda, cpu_model, dtype):
+    """Model.apply_physics on a JW + WSM6 state with condensate seeded
+    across the freezing level: float64 within 1e-9 of the CPU, float32
+    within 1e-3 (its heating rates, then one step each)."""
+    from mpas_tpu_torch.physics.driver import physics_init
+    nl = Namelist(**dict(KW, dtype=dtype), config_moisture=True,
+                  config_microphysics="wsm6", config_pbl="ysu_lite")
+    cpu = build_model(nl.replace(dtype="float64"), cpu_model.mesh,
+                      device="cpu")
+    gpu = build_model(nl, cpu_model.mesh, device="cuda")
+    cpu.state = probes.seeded_condensate(cpu.state, seed=0)
+    gpu.state = gpu.state.replace(scalars=cpu.state.scalars.to(
+        cuda, gpu.dtype))
+    phys = physics_init()
+    d_cpu = cpu.apply_physics(phys, julian=80.25)
+    d_gpu = gpu.apply_physics(phys, julian=80.25)
+    tol = 1e-9 if dtype == "float64" else 1e-3
+    assert d_cpu["cldfra"].max() == 1.0
+    for k in ("rthraten", "qrs", "qrl", "olr", "fsns", "cldfra"):
+        assert rel_err(torch.from_numpy(d_cpu[k]).double(),
+                       torch.from_numpy(d_gpu[k]).double()) < tol, k
+    K1.launches = K2.launches = 0
+    gpu.step(1)
+    cpu.step(1)
+    assert K1.launches == 4 and K2.launches > 27
+    assert rel_err(cpu.state.theta_m, gpu.state.theta_m.cpu().double()) < tol
+
+
+@pytest.mark.gpu
+def test_cli_on_the_card(cuda, tmp_path, monkeypatch):
+    """`python -m mpas_tpu_torch`'s main on the card: radiation, a history
+    and a checkpoint; 2 steps + restart + 2 steps give the history of 4
+    straight steps bit for bit."""
+    from mpas_tpu_torch import __main__ as cli
+    from mpas_tpu_torch.mesh.netcdf_io import read_netcdf
+    monkeypatch.setenv("HOME", str(tmp_path))
+    flags = ["--grid", "generate:3", "--levels", "8", "--dtype", "float64",
+             "--physics", "--radt-steps", "2", "--output-full-3d", "--quiet",
+             "--device", "cuda"]
+    path = lambda n: str(tmp_path / n)
+    K1.launches = 0
+    assert cli.main(flags + ["--steps", "4", "--output", path("a.nc"),
+                             "--checkpoint-path", path("a.npz")]) == 0
+    assert K1.launches == 16
+    assert cli.main(flags + ["--steps", "2", "--checkpoint-every", "2",
+                             "--output", path("b.nc"), "--checkpoint-path",
+                             path("b.npz")]) == 0
+    assert cli.main(flags + ["--steps", "2", "--restart", path("b.npz"),
+                             "--output", path("c.nc"), "--checkpoint-path",
+                             path("c.npz")]) == 0
+    a, c = read_netcdf(path("a.nc")), read_netcdf(path("c.nc"))
+    for k in ("u", "w", "theta", "pressure_p", "surface_pressure"):
+        assert np.array_equal(a[k], c[k]), k

@@ -123,14 +123,18 @@ def test_save_grid_load_mesh_equal(meshes, tmp_path):
     assert_same(t_load(str(tmp_path / "j.nc")), b, "cross")
 
 
-def test_generate_and_cache(tmp_path):
-    m1 = t_writer.generate_and_cache(2, cache_dir=str(tmp_path))
+@pytest.mark.parametrize("levels", [2, 3])
+def test_generate_and_cache(tmp_path, levels):
+    """The first call (which generates and writes the cache) returns the
+    mesh every later call loads; at level 3 the unit-sphere round trip moves
+    the coordinates, so the generated mesh itself would differ."""
+    m1 = t_writer.generate_and_cache(levels, cache_dir=str(tmp_path))
     files = list(tmp_path.iterdir())
-    m2 = t_writer.generate_and_cache(2, cache_dir=str(tmp_path))
+    m2 = t_writer.generate_and_cache(levels, cache_dir=str(tmp_path))
     assert len(files) == 1 and list(tmp_path.iterdir()) == files
     assert_same(m1, m2, "cached")
-    assert_same(j_writer.generate_and_cache(2, cache_dir=str(tmp_path)), m1,
-                "reference")
+    assert_same(j_writer.generate_and_cache(levels, cache_dir=str(tmp_path)),
+                m1, "reference")
 
 
 # ---------------------------------------------------------------------------
