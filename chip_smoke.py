@@ -29,6 +29,20 @@ Phases, each printing one JSON line:
      first; no NaN, sane extrema, each kernel launched;
   6. profile: PROFILE_STEPS more steps traced with torch.profiler, for
      launches per step, the device-busy share and device time by kernel;
+  6b. sharded: the same model decomposed into SHARDS shards side by side on
+     the card (parallel/sharded.py's stacked back end): Kernel 4 bit-equal
+     to its plain version on the halo exchange's own source vectors, with
+     its times; SHARDED_STEPS counted steps (launches of Kernels 1, 2 and 4,
+     exchanges and halo bytes a step beside
+     partition.exchange_bytes_per_step, S*L/N of each entity), steps timed
+     in turns with the single-device step, a traced window, and
+     sharded_summarize against host_summarize_oracle;
+  6c. regional: the mesh marked with the NH cap's zones, a global driving
+     run of REGIONAL_STEPS steps with an LBC snapshot every LBC_EVERY, then
+     io/lbc.RegionalDriver steps in turns with the global run replayed:
+     ms and launches a step of each, the specified zone against the stream
+     at each step's start, the interior within REGIONAL_BOUND of the
+     global run;
   7. main_path_orient: the same run with config_orient_edges=True (the JAX
      bench's setting) on the same mesh, with Kernel 2 checked at the shapes
      the aligned step adds (gather_reduce_orient, gather_forms), 10 counted
@@ -57,13 +71,18 @@ Phases, each printing one JSON line:
      agreement_radiation: JW + WSM6 + PBL with condensate seeded across the
      freezing level (probes.seeded_condensate), one radiation call and 2
      steps, rt_diabatic_tend, every diagnostic and every state field;
+     agreement_regional: 2 RegionalDriver steps on the card and the CPU;
+     agreement_sharded: 2 stacked 4-shard steps on the card against the CPU
+     and against the single-device step on the card (owned entries);
   8b. squall: 60 float32 steps of the squall line on the card (2562 cells,
      16 levels): a convective updraft, condensate, no negative rain;
   8c. cli: `python -m mpas_tpu_torch`'s main in this process on the card: a
      full-width moist run with radiation, history and checkpoints (its own
      ms/step, the files' sizes, launches of Kernels 1 and 2), and a restart
      leg at x1.2562, float64: 4 straight steps against 2 + restart + 2,
-     whose final histories must be bit-equal;
+     whose final histories must be bit-equal; and the same with --shards
+     SHARDS: its history within AGREE_REL of the single-device leg's, its
+     checkpoint in the SHARDS-shard layout, its restart bit-equal;
   9. windowed_study: Kernel 3 (windowed gather-reduce) against its plain
      version, Kernel 2 and the index_select loop on the RCM-renumbered
      x1.40962 mesh at Kst = 48 and 168 levels (probes.windowed_study), and
@@ -80,7 +99,10 @@ Phases, each printing one JSON line:
 
 Every timed phase carries the card's SM clock, its maximum, temperature and
 power draw read before and after it (`smi_before`, `smi_after`). Then a
-`kernels` line, the nvidia-smi line, and last the `ok` line. Any failed
+`kernels` line (each kernel's launches on every path that runs it: Kernels
+1 and 2 also `launches_sharded` and `launches_regional`, Kernel 4
+`launches_sharded` and `exchange`, its check and times on the halo
+exchange), the nvidia-smi line, and last the `ok` line. Any failed
 check raises, so the script exits non-zero; without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -120,6 +142,14 @@ RADIATION_JULIAN = 80.25   # equinox, 06 UTC: half the planet in daylight
 RADT_STEPS = 5             # the CLI's default --radt-steps
 RADIATION_STEPS = 2        # steps taken with the heating applied
 CLI_STEPS = 10
+SHARDS = 4                 # the stacked back end's shards on the one card
+SHARDED_STEPS = 10
+TURN_PAIRS = 6             # steps of each of two runs timed in turns
+REGIONAL_STEPS = 12
+LBC_EVERY = 3              # steps between the driving run's LBC snapshots
+REGIONAL_BOUND = 0.2       # interior |du|, |dtheta_m|: tests/test_lbc.py
+ZONE_REL = 1e-5            # specified zone against the stream, float32
+SUMMARY_REL = 1e-6         # device summarize against the host oracle, f32
 # the namelist of the CLI's runs: the moist path of main_path_moist
 CLI_NAMELIST = {"config_moisture": True, "config_microphysics": "wsm6",
                 "config_pbl": "ysu_lite", "config_jw_u_perturbation": 1.0}
@@ -819,6 +849,305 @@ def agreement_radiation(nl, mesh, torch):
                            f"{launches}")
 
 
+def turns(a, b, pairs):
+    """Median ms of a.step(1) and of b.step(1), timed in turns (a b, b a,
+    ...), with the launches of Kernels 1 and 2 a step of each."""
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.probes import step_ms
+    ms = {id(a): [], id(b): []}
+    launches = {id(a): 0, id(b): 0}
+    for i in range(pairs):
+        for m in ((a, b) if i % 2 == 0 else (b, a)):
+            acoustic_column.launches = gather_reduce.launches = 0
+            ms[id(m)] += step_ms(m, 1)
+            launches[id(m)] += acoustic_column.launches + gather_reduce.launches
+    return ([statistics.median(ms[id(m)]) for m in (a, b)],
+            [launches[id(m)] / pairs for m in (a, b)])
+
+
+def exchange_kernel4(sm, torch):
+    """Kernel 4 on the stacked exchange's own source vectors, at the packed
+    blocks of refresh_state (8 cell fields, 2 edge fields): bit-equal to
+    its plain version, its time beside the bound, the plain version's and
+    `index_select`'s."""
+    from mpas_tpu_torch.ops import take_columns as tc
+    from mpas_tpu_torch.probes import cuda_ms
+    s = sm.state
+    packs = {"cell": torch.cat([s.w, s.theta_m, s.rho_zz, s.rho_p,
+                                s.rtheta_p, s.exner, s.pressure_p, s.rw]),
+             "edge": torch.cat([s.u, s.ru])}
+    rows = {}
+    for ent, tbl in packs.items():
+        src = getattr(sm.tables, ent).source
+        out_k = tc.take_columns(tbl, src)
+        out_p = tc.take_columns_plain(tbl, src)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            raise RuntimeError(f"sharded: Kernel 4 differs from its plain "
+                               f"version on the {ent} exchange")
+        nb = nbytes(tbl, out_p) + src.numel() * 4
+        b_ms, b_by = bound(nb, 0, "float32")
+        rows[ent] = dict(
+            shape=[tbl.shape[0], tbl.shape[1], src.shape[0]], bit_equal=True,
+            form="rows" if tc.uses_row_form(tbl, src) else "direct",
+            halo_slots=getattr(sm.tables, ent).n_halo,
+            ms=cuda_ms(lambda: tc.take_columns(tbl, src)),
+            plain_ms=cuda_ms(lambda: tc.take_columns_plain(tbl, src)),
+            library_ms=cuda_ms(lambda: torch.index_select(tbl, 1, src)),
+            bytes=nb, bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+def sharded_run(model, torch):
+    """The stacked back end on the card: shard_model(model, SHARDS), Kernel
+    4 on the exchange's vectors, SHARDED_STEPS counted steps (launches of
+    Kernels 1, 2 and 4, exchanges, halo bytes), then steps timed in turns
+    with the single-device model, a traced window, and summarize against
+    its host oracle."""
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.ops import take_columns as tc
+    from mpas_tpu_torch.parallel import halo, partition
+    from mpas_tpu_torch.parallel.sharded import (host_summarize_oracle,
+                                                 shard_model,
+                                                 sharded_summarize)
+    from mpas_tpu_torch.probes import step_ms
+    t0 = time.perf_counter()
+    sm = shard_model(model, SHARDS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    p, nl = sm.partition, sm.namelist
+    k4 = exchange_kernel4(sm, torch)
+    acoustic_column.launches = gather_reduce.launches = tc.launches = 0
+    halo.exchanges = halo.halo_bytes = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = step_ms(sm, SHARDED_STEPS)
+    launches = {"acoustic_column": acoustic_column.launches,
+                "gather_reduce": gather_reduce.launches,
+                "take_columns": tc.launches}
+    exchanges, halo_bytes = halo.exchanges, halo.halo_bytes
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(v <= 0 for v in launches.values()):
+        raise RuntimeError(f"sharded: a kernel never launched: {launches}")
+    (single_ms, sharded_ms), (single_l, sharded_l) = turns(model, sm,
+                                                           TURN_PAIRS)
+    prof = profile_steps(sm, PROFILE_STEPS, torch)
+    summ, oracle = sharded_summarize(sm), host_summarize_oracle(sm)
+    check_summary(summ, "sharded")
+    diff = {k: abs(summ[k] - oracle[k]) / max(abs(oracle[k]), 1e-30)
+            for k in summ if k != "nan_detected"}
+    if (summ["nan_detected"] != oracle["nan_detected"]
+            or max(diff.values()) > SUMMARY_REL):
+        raise RuntimeError(f"sharded: summarize {summ} != oracle {oracle}")
+    acc = partition.exchange_bytes_per_step(p, nl, nl.config_nvertlevels,
+                                            bytes_per_value=4)
+    sizes = {"cell": model.mesh.nCells, "edge": model.mesh.nEdges,
+             "vertex": model.mesh.nVertices}
+    return dict(
+        shards=SHARDS, mode=nl.config_halo_exchange, setup_s=setup_s,
+        local={e: [int(getattr(p, f"{e}_l2g").shape[1]),
+                   int((getattr(p, f"{e}_owned_mask") > 0).sum(1).max())]
+               for e in sizes},
+        halo_overhead_SL_over_N={
+            e: SHARDS * getattr(p, f"{e}_l2g").shape[1] / n
+            for e, n in sizes.items()},
+        rounds={"cell": len(p.cell_x.rounds), "edge": len(p.edge_x.rounds)},
+        steps=SHARDED_STEPS, ms_per_step=times,
+        ms_per_step_median=statistics.median(times), peak_mem_gb=peak,
+        launches=launches,
+        launches_per_step={k: v / SHARDED_STEPS for k, v in launches.items()},
+        exchanges_per_step=exchanges / SHARDED_STEPS,
+        halo_bytes_per_step=halo_bytes / SHARDED_STEPS,
+        exchange_bytes_per_step_estimate=acc["total_bytes_per_step"],
+        exchange_accounting=acc, kernel4_exchange=k4,
+        turns={"pairs": TURN_PAIRS, "single_ms_per_step_median": single_ms,
+               "sharded_ms_per_step_median": sharded_ms,
+               "sharded_over_single": sharded_ms / single_ms,
+               "k1_k2_launches_per_step": {"single": single_l,
+                                           "sharded": sharded_l}},
+        profile=prof, summary=summ, oracle_max_rel_diff=max(diff.values()))
+
+
+def regional_run(mesh, nl, torch):
+    """A regional run at full width: the mesh marked with the NH cap's
+    zones (latCell > 0.15, 5 relaxation rings), a global driving run of
+    REGIONAL_STEPS steps with an LBC snapshot every LBC_EVERY, then
+    RegionalDriver steps in turns with the global run replayed from the
+    same state: ms and launches a step of each, the specified zone against
+    the stream at each step's start, the interior against the global run."""
+    import copy
+    import dataclasses
+    import numpy as np
+    from mpas_tpu_torch.dynamics import srk3
+    from mpas_tpu_torch.dynamics.model import build_model
+    from mpas_tpu_torch.io import lbc
+    from mpas_tpu_torch.mesh.coefficients import mark_regional_zones
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.probes import step_ms
+    rmesh = mark_regional_zones(copy.copy(mesh), mesh.latCell > 0.15,
+                                n_relax=5)
+    t0 = time.perf_counter()
+    glob = build_model(nl, rmesh, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    s0, dt = glob.state, nl.config_dt
+    cells, edges = lbc.zone_indices(rmesh)
+    times, snaps = [0.0], [lbc.extract_lbc(s0, cells, edges)]
+    t0 = time.perf_counter()
+    for i in range(REGIONAL_STEPS):
+        glob.step(1)
+        if (i + 1) % LBC_EVERY == 0:
+            times.append((i + 1) * dt)
+            snaps.append(lbc.extract_lbc(glob.state, cells, edges))
+    driving_s = time.perf_counter() - t0
+    stream = lbc.build_stream(times, cells, edges, snaps)
+    final = glob.state
+    nl_r = nl.replace(config_apply_lbcs=True)
+    reg = dataclasses.replace(
+        glob, namelist=nl_r, state=s0, step_count=0,
+        step_fn=srk3.make_step_fn(glob.static, glob.mesh_arrays, glob.vert,
+                                  nl_r))
+    glob.state, glob.step_count = s0, 0
+    drv = lbc.RegionalDriver(reg, stream)
+    spec_c = rmesh.bdyMaskCell > nl.nRelaxZone
+    spec_e = rmesh.bdyMaskEdge > nl.nRelaxZone
+    zc = torch.from_numpy(np.searchsorted(stream.cells,
+                                          np.where(spec_c)[0])).cuda()
+    ze = torch.from_numpy(np.searchsorted(stream.edges,
+                                          np.where(spec_e)[0])).cuda()
+    sc = torch.from_numpy(np.where(spec_c)[0]).cuda()
+    se = torch.from_numpy(np.where(spec_e)[0]).cuda()
+    ms = {"regional": [], "global": []}
+    launches = {k: {"acoustic_column": 0, "gather_reduce": 0} for k in ms}
+    zone_err = 0.0
+    for i in range(REGIONAL_STEPS):
+        for name in (("regional", "global") if i % 2 == 0
+                     else ("global", "regional")):
+            m = drv if name == "regional" else glob
+            f = lbc.interp_fields(stream, reg.step_count * dt, reg.dtype,
+                                  reg.device)
+            acoustic_column.launches = gather_reduce.launches = 0
+            ms[name] += step_ms(m, 1)
+            launches[name]["acoustic_column"] += acoustic_column.launches
+            launches[name]["gather_reduce"] += gather_reduce.launches
+            if name == "regional":
+                for n, col, idx in (("theta_m", zc, sc), ("rho_zz", zc, sc),
+                                    ("u", ze, se)):
+                    ref = f[n].index_select(1, col)
+                    got = getattr(reg.state, n).index_select(1, idx)
+                    zone_err = max(zone_err, rel_err(got, ref, torch))
+    if not zone_err <= ZONE_REL:
+        raise RuntimeError(f"regional: the specified zone left the stream "
+                           f"({zone_err} > {ZONE_REL})")
+    int_c = torch.from_numpy(rmesh.bdyMaskCell == 0).cuda()
+    int_e = torch.from_numpy(rmesh.bdyMaskEdge == 0).cuda()
+    du = float((reg.state.u - final.u)[:, int_e].abs().max())
+    dth = float((reg.state.theta_m - final.theta_m)[:, int_c].abs().max())
+    summ = reg.summarize()
+    check_summary(summ, "regional")
+    if not (du < REGIONAL_BOUND and dth < REGIONAL_BOUND):
+        raise RuntimeError(f"regional: interior off the global run: |du| "
+                           f"{du}, |dtheta_m| {dth}")
+    prof = {"regional": profile_steps(drv, 2, torch),
+            "global": profile_steps(glob, 2, torch)}
+    return dict(
+        cells=rmesh.nCells, zone_cells=len(cells), zone_edges=len(edges),
+        specified_cells=int(spec_c.sum()), interior_cells=int((rmesh.bdyMaskCell == 0).sum()),
+        levels=nl.config_nvertlevels, dtype=nl.dtype, dt=dt,
+        steps=REGIONAL_STEPS, lbc_every=LBC_EVERY, stream_times=len(times),
+        setup_s=setup_s, driving_run_s=driving_s,
+        ms_per_step_median={k: statistics.median(v) for k, v in ms.items()},
+        ms_per_step=ms,
+        launches=launches,
+        launches_per_step={k: {x: n / REGIONAL_STEPS for x, n in v.items()}
+                           for k, v in launches.items()},
+        regional_over_global=(statistics.median(ms["regional"])
+                              / statistics.median(ms["global"])),
+        interior_max_abs_du=du, interior_max_abs_dtheta_m=dth,
+        bound=REGIONAL_BOUND, zone_max_rel_err=zone_err, zone_limit=ZONE_REL,
+        profile={k: {x: v[x] for x in ("launches_per_step",
+                                       "kernel_device_ms_per_step",
+                                       "device_busy_share",
+                                       "traced_wall_ms")}
+                 for k, v in prof.items()},
+        summary=summ)
+
+
+def agreement_regional(nl, mesh, torch):
+    """A regional run at x1.2562, float64, driven by a stream from 2 CPU
+    global steps: 2 RegionalDriver steps on the card and on the CPU, every
+    prognostic within AGREE_REL."""
+    import copy
+    from mpas_tpu_torch.dynamics.model import build_model
+    from mpas_tpu_torch.io import lbc
+    from mpas_tpu_torch.mesh.coefficients import mark_regional_zones
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    rmesh = mark_regional_zones(copy.copy(mesh), mesh.latCell > 0.15,
+                                n_relax=5)
+    drive = build_model(nl, rmesh, device="cpu")
+    cells, edges = lbc.zone_indices(rmesh)
+    snaps = [lbc.extract_lbc(drive.state, cells, edges)]
+    drive.step(2)
+    snaps.append(lbc.extract_lbc(drive.state, cells, edges))
+    stream = lbc.build_stream([0.0, 2 * nl.config_dt], cells, edges, snaps)
+    nl_r = nl.replace(config_apply_lbcs=True)
+    states = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(nl_r, rmesh, device=dev)
+        acoustic_column.launches = gather_reduce.launches = 0
+        lbc.RegionalDriver(m, stream).step(2)
+        if dev == "cuda":
+            launches = {"acoustic_column": acoustic_column.launches,
+                        "gather_reduce": gather_reduce.launches}
+        states[dev] = m.state
+    names = ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p", "ru", "rw",
+             "exner", "pressure_p")
+    agree = {n: rel_err(getattr(states["cuda"], n), getattr(states["cpu"], n),
+                        torch) for n in names}
+    emit({"phase": "agreement_regional", "cells": rmesh.nCells,
+          "zone_cells": len(cells), "levels": nl.config_nvertlevels,
+          "dtype": nl.dtype, "steps": 2, "launches": launches,
+          "max_rel_err": agree, "limit_rel": AGREE_REL})
+    bad = {k: v for k, v in agree.items() if not v <= AGREE_REL}
+    if bad or min(launches.values()) <= 0:
+        raise RuntimeError(f"agreement_regional: card and CPU disagree: {bad}"
+                           f" (launches {launches})")
+
+
+def agreement_sharded(nl, mesh, torch):
+    """The stacked back end at x1.2562, float64, SHARDS shards, 2 steps on
+    the card and on the CPU (owned entries), and on the card against the
+    single-device step on the card: every prognostic within AGREE_REL."""
+    from mpas_tpu_torch.dynamics.model import build_model
+    from mpas_tpu_torch.ops import take_columns as tc
+    from mpas_tpu_torch.parallel import halo
+    from mpas_tpu_torch.parallel.sharded import shard_model
+    single = build_model(nl, mesh, device="cuda")
+    gpu = shard_model(single, SHARDS)
+    cpu = shard_model(build_model(nl, mesh, device="cpu"), SHARDS)
+    tc.launches = halo.exchanges = 0
+    gpu.step(2)
+    launches, exchanges = tc.launches, halo.exchanges
+    cpu.step(2)
+    single.step(2)
+    g, c = gpu.gather_state(mesh), cpu.gather_state(mesh)
+    names = ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p", "ru", "rw",
+             "exner", "pressure_p")
+    agree = {n: rel_err(g[n], c[n], torch) for n in names}
+    vs_single = {n: rel_err(g[n], getattr(single.state, n), torch)
+                 for n in names}
+    emit({"phase": "agreement_sharded", "cells": mesh.nCells,
+          "shards": SHARDS, "levels": nl.config_nvertlevels,
+          "dtype": nl.dtype, "steps": 2, "take_columns_launches": launches,
+          "exchanges": exchanges, "max_rel_err": agree,
+          "max_rel_err_vs_single_device": vs_single, "limit_rel": AGREE_REL})
+    bad = {k: v for k, v in list(agree.items()) + [
+        (f"single.{k}", v) for k, v in vs_single.items()]
+        if not v <= AGREE_REL}
+    if bad or launches <= 0:
+        raise RuntimeError(f"agreement_sharded: disagree: {bad} (Kernel 4 "
+                           f"launches {launches})")
+
+
 def cli_runs(torch):
     """`python -m mpas_tpu_torch`'s main, in this process, on the card, in a
     temporary directory that also holds $HOME (where the CLI caches its
@@ -829,6 +1158,7 @@ def cli_runs(torch):
     import io
     import re
     import tempfile
+    import numpy as np
     from mpas_tpu_torch import __main__ as cli
     from mpas_tpu_torch.mesh.netcdf_io import read_netcdf
     from mpas_tpu_torch.ops import acoustic_column, gather_reduce
@@ -903,6 +1233,26 @@ def cli_runs(torch):
                     for k in a if k != "_dims"}
             unequal = sorted(k for k in a if k != "_dims"
                              and not (a[k] == b[k]).all())
+
+            # the sharded leg: the same 4 steps with --shards SHARDS (the
+            # stacked back end on the card) against the single-device leg,
+            # and 2 + restart + 2 of it, which must be bit-equal
+            shard = ["--shards", str(SHARDS)]
+            run(*leg, *shard, "--steps", "4", "--output", path("s.nc"),
+                "--checkpoint-path", path("s.npz"))
+            run(*leg, *shard, "--steps", "2", "--checkpoint-every", "2",
+                "--output", path("s1.nc"), "--checkpoint-path", path("sb.npz"))
+            run(*leg, *shard, "--steps", "2", "--restart", path("sb.npz"),
+                "--output", path("s2.nc"), "--checkpoint-path",
+                path("sb2.npz"))
+            sh, sh2 = read_netcdf(path("s.nc")), read_netcdf(path("s2.nc"))
+            with np.load(path("sb.npz")) as ck:
+                ck_shards = int(ck["__n_shards__"])
+            vs_single = {k: rel_err(sh[k].astype("float64"),
+                                    a[k].astype("float64"), torch)
+                         for k in a if k != "_dims"}
+            sharded_unequal = sorted(k for k in sh if k != "_dims"
+                                     and not (sh[k] == sh2[k]).all())
         finally:
             if home is None:
                 del os.environ["HOME"]
@@ -913,7 +1263,15 @@ def cli_runs(torch):
                    max_rel_diff=max(diff.values()), limit_rel=AGREE_REL)
     if unequal and not restart["max_rel_diff"] <= AGREE_REL:
         raise RuntimeError(f"cli restart leg: resumed run differs: {diff}")
-    return {"full_width": full, "restart": restart}
+    sharded = dict(shards=SHARDS, cells=sh["_dims"]["nCells"], levels=26,
+                   dtype="float64", checkpoint_shards=ck_shards,
+                   max_rel_diff_vs_single_device=max(vs_single.values()),
+                   limit_rel=AGREE_REL, restart_bit_equal=not sharded_unequal,
+                   restart_unequal_fields=sharded_unequal)
+    if (sharded_unequal or ck_shards != SHARDS
+            or not sharded["max_rel_diff_vs_single_device"] <= AGREE_REL):
+        raise RuntimeError(f"cli sharded leg: {sharded}")
+    return {"full_width": full, "restart": restart, "sharded": sharded}
 
 
 def main():
@@ -992,7 +1350,21 @@ def main():
     emit({"phase": "profile",
           **timed(lambda: profile_steps(model, PROFILE_STEPS, torch))})
     shapes_seen = set(k2_calls)
-    del model, k1_args, k2_calls, gathers
+    del k1_args, k2_calls, gathers
+
+    # 6b. the stacked domain decomposition on the card, from this model
+    sharded = timed(lambda: sharded_run(model, torch))
+    emit({"phase": "sharded", "cells": model.mesh.nCells, "levels": 41,
+          "dtype": "float32", "dt": 300.0,
+          "note": f"{SHARDS} shards side by side on one card: correctness "
+                  "and cost of the decomposition, not a scaling figure",
+          **sharded})
+    del model
+    torch.cuda.empty_cache()
+
+    # 6c. a regional run at full width, driven by a global run's LBCs
+    regional = timed(lambda: regional_run(mesh, nl, torch))
+    emit({"phase": "regional", **regional})
     torch.cuda.empty_cache()
 
     # 7. the JAX bench's setting: edges aligned to their owner cells
@@ -1112,6 +1484,8 @@ def main():
     agreement_radiation(nl6.replace(config_moisture=True,
                                     config_microphysics="wsm6",
                                     config_pbl="ysu_lite"), mesh4, torch)
+    agreement_regional(nl6, mesh4, torch)
+    agreement_sharded(nl6, mesh4, torch)
 
     # 8b. the squall line on the card, float32: convection must develop
     model = build_model(nl_sq.replace(dtype="float32"), mesh4s, device="cuda")
@@ -1206,6 +1580,9 @@ def main():
          "launches_orient": orient["launches"]["acoustic_column"],
          "launches_moist": moist["launches"]["acoustic_column"],
          "launches_cli": cli["full_width"]["launches"]["acoustic_column"],
+         "launches_sharded": sharded["launches"]["acoustic_column"],
+         "launches_regional": regional["launches"]["regional"][
+             "acoustic_column"],
          "max_abs_err": k1["float32"]["max_abs_err"],
          "max_rel_err": k1["float32"]["max_rel_err"],
          "ms": k1["float32"]["ms"],
@@ -1232,6 +1609,9 @@ def main():
          "launches_orient": orient["launches"]["gather_reduce"],
          "launches_moist": moist["launches"]["gather_reduce"],
          "launches_cli": cli["full_width"]["launches"]["gather_reduce"],
+         "launches_sharded": sharded["launches"]["gather_reduce"],
+         "launches_regional": regional["launches"]["regional"][
+             "gather_reduce"],
          "moist_shapes": [[r["Kt"], r["N"], r["R"], r["M"], r["S"]]
                           for r in k2_moist],
          "row_form_launches": main["gather_reduce_row_form_launches"],
@@ -1267,6 +1647,8 @@ def main():
          "replaces": "tools/pallas_gather_probe.py:55",
          "also_replaces": ["tools/pallas_gather_probe.py:82"],
          "launches": k4_launches, "row_form_launches": k4_row_launches,
+         "launches_sharded": sharded["launches"]["take_columns"],
+         "exchange": sharded["kernel4_exchange"],
          "form": a["form"], "forms": take_forms,
          "step_gate": {"open": sum(r["gate"] == "open" for r in take_step),
                        "shut": sum(r["gate"] == "shut" for r in take_step)},

@@ -7,15 +7,21 @@ per-step summaries, radiation intervals, checkpoints -> history output:
     python -m mpas_tpu_torch --grid generate:4 --levels 26 --steps 10 \
         --output timestep_output.nc [--config namelist.json] [--physics]
         [--restart ckpt.npz] [--checkpoint-every 50] [--device cpu]
+        [--shards 4] [--metis graph.info.part.4]
 
 It runs on the CUDA device unless `--device cpu` is given; without a card,
-`--device cuda` raises rather than falling back to the CPU. The multi-GPU
-path (`--shards N > 1`) is not ported yet and is refused.
+`--device cuda` raises rather than falling back to the CPU. `--shards N`
+decomposes the domain into N shards (parallel/sharded.py): all N on the
+one device in this process, or, under `torchrun --nproc-per-node N -m
+mpas_tpu_torch --shards N`, one process per shard (gloo with `--device
+cpu`, NCCL on cuda:LOCAL_RANK otherwise). History and checkpoints of a
+sharded run are written by rank 0 alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -53,8 +59,10 @@ def main(argv=None):
                          "fetch waits for the device). Default 0 = every 10 "
                          "steps.")
     ap.add_argument("--shards", type=int, default=0,
-                    help="domain-decompose over N devices (not ported yet: "
-                         "only 0 or 1)")
+                    help="domain-decompose into N shards (0 = single device):"
+                         " one process per shard under torchrun, else all N"
+                         " on --device")
+    ap.add_argument("--metis", default=None, help="METIS partition file")
     ap.add_argument("--restart", default=None, help="restart checkpoint to resume")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--checkpoint-path", default="restart.npz")
@@ -64,20 +72,40 @@ def main(argv=None):
                     help="dynamics steps between radiation calls (>= 1)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-    if args.shards > 1:
-        ap.error(f"--shards {args.shards}: the multi-GPU path is not ported "
-                 "to mpas_tpu_torch yet; run on one device (--shards 0)")
     if args.physics and args.radt_steps < 1:
         ap.error(f"--radt-steps must be >= 1 (got {args.radt_steps})")
     if args.levels is not None and args.levels < 3:
         ap.error(f"--levels must be >= 3 (got {args.levels}): the vertical "
                  "solver needs at least 3 mass levels")
 
-    from .config import Namelist
-    from .dynamics.model import build_model, resolve_device
-    from .io.history import HistoryWriter, load_restart, save_restart, write_history
+    from .dynamics.model import resolve_device
 
+    sharded = args.shards > 1
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    distributed = sharded and world > 1
+    if world > 1 and world != args.shards:
+        ap.error(f"--shards {args.shards} under {world} processes: give one "
+                 "process per shard")
     device = resolve_device(args.device)
+    if distributed:
+        import torch.distributed as dist
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _run(args, device, sharded)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _run(args, device, sharded):
+    from .config import Namelist
+    from .dynamics.model import build_model
+    from .io.history import (HistoryWriter, gathered_state, load_restart,
+                             save_restart, write_history)
+
     nl = Namelist.from_file(args.config) if args.config else Namelist()
     overrides = {}
     if args.levels is not None:
@@ -96,7 +124,8 @@ def main(argv=None):
         overrides["config_orient_edges"] = True
     nl = nl.replace(**overrides)
 
-    log = (lambda *a: None) if args.quiet else print
+    rank0 = int(os.environ.get("RANK", "0")) == 0
+    log = (lambda *a: None) if args.quiet or not rank0 else print
 
     if args.grid.startswith("generate:"):
         from .mesh.writer import generate_and_cache
@@ -122,18 +151,35 @@ def main(argv=None):
     log(f"model ready in {time.time() - t0:.1f}s: {model.mesh.nCells} cells, "
         f"{model.mesh.nEdges} edges, {nl.config_nvertlevels} levels")
 
+    runner = model
+    if sharded:
+        from .parallel.sharded import shard_model, sharded_summarize
+        log(f"sharding into {args.shards} shards ...")
+        runner = shard_model(model, args.shards, metis_path=args.metis)
+
     if args.restart:
-        load_restart(args.restart, model)
-        log(f"resumed from {args.restart} at step {model.step_count}")
+        # a sharded checkpoint restores into the sharded runner, a
+        # single-device checkpoint into the model — same shard count required
+        load_restart(args.restart, runner)
+        log(f"resumed from {args.restart} at step {runner.step_count}")
 
     phys = None
     if args.physics:
         from .physics.driver import physics_init
         phys = physics_init()
+        if sharded:
+            runner.enable_physics(phys)
 
     hist = None
     if args.output and args.history_every:
         hist = HistoryWriter(model, full_3d=args.output_full_3d)
+
+    def record_history():
+        if sharded:
+            hist.record(state=gathered_state(runner, model),
+                        time_value=float(runner.step_count))
+        else:
+            hist.record()
 
     # wall time of the loop's parts other than the steps; the device is
     # synchronized before each, so the steps' queued work counts as theirs
@@ -152,16 +198,20 @@ def main(argv=None):
     t0 = time.time()
     for step in range(n_steps):
         if phys is not None and step % args.radt_steps == 0:
-            pd = timed("radiation", lambda: model.apply_physics(phys))
-            log(f"  physics: cldfra max={pd['cldfra'].max():.2f} "
-                f"OLR mean={pd['olr'].mean():.0f} W/m2 "
-                f"qr range=[{(pd['qrl'].min()*86400):.1f},"
-                f"{(pd['qrs'].max()*86400):.1f}] K/day")
-        model.step(1)
+            if sharded:
+                timed("radiation", lambda: runner.apply_physics(phys))
+                log("  physics: radiation interval applied (sharded)")
+            else:
+                pd = timed("radiation", lambda: model.apply_physics(phys))
+                log(f"  physics: cldfra max={pd['cldfra'].max():.2f} "
+                    f"OLR mean={pd['olr'].mean():.0f} W/m2 "
+                    f"qr range=[{(pd['qrl'].min()*86400):.1f},"
+                    f"{(pd['qrs'].max()*86400):.1f}] K/day")
+        runner.step(1)
         # summarize waits for the device: fetch only every --log-every steps
         if (step + 1) % log_every == 0 or step + 1 == n_steps:
-            s = model.summarize()
-            log(f"step {model.step_count}: "
+            s = sharded_summarize(runner) if sharded else model.summarize()
+            log(f"step {runner.step_count}: "
                 f"w=[{s['w_min']:+.3e},{s['w_max']:+.3e}] "
                 f"u=[{s['u_min']:+.2f},{s['u_max']:+.2f}]"
                 + (" *** NaN detected ***" if s["nan_detected"] else ""))
@@ -169,10 +219,10 @@ def main(argv=None):
                 log("aborting: NaN in prognostic fields")
                 return 1
         if hist is not None and (step + 1) % args.history_every == 0:
-            timed("history", hist.record)
+            timed("history", record_history)
         if args.checkpoint_every and (step + 1) % args.checkpoint_every == 0:
             timed("checkpoints",
-                  lambda: save_restart(args.checkpoint_path, model))
+                  lambda: save_restart(args.checkpoint_path, runner))
             log(f"checkpoint -> {args.checkpoint_path}")
     elapsed = time.time() - t0
     log(f"{n_steps} steps in {elapsed:.2f}s "
@@ -180,10 +230,17 @@ def main(argv=None):
         + ", ".join(f"{k} {v:.2f}s" for k, v in spent.items()) + ")")
 
     if args.output:
-        if hist is not None:
-            hist.write(args.output)
-        else:
-            write_history(args.output, model, full_3d=args.output_full_3d)
+        state = None
+        if sharded:
+            # the history's time is the model's step count (mpas_tpu writes
+            # the unstepped model's 0 here)
+            state, model.step_count = gathered_state(runner, model), runner.step_count
+        if rank0:
+            if hist is not None:
+                hist.write(args.output)
+            else:
+                write_history(args.output, model, state=state,
+                              full_3d=args.output_full_3d)
         log(f"history -> {args.output}")
     return 0
 

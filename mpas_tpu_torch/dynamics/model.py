@@ -137,7 +137,6 @@ def build_model(namelist: Optional[Namelist] = None,
     nl = namelist or Namelist()
     dev = resolve_device(device)
     dtype = dtype or _DTYPES[nl.dtype]
-    srk3.check_namelist(nl)
 
     seconds, t0 = {}, time.perf_counter()
 

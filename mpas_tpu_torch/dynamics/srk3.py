@@ -34,20 +34,18 @@ def rk_substep_counts(number_of_sub_steps: int):
     return [max(1, n // 2), max(1, n // 2), n]
 
 
-def check_namelist(nl) -> None:
-    """Raise for the one option of the single-device step that is not
-    ported yet: the regional lateral boundary conditions."""
-    if getattr(nl, "config_apply_lbcs", False):
-        raise NotImplementedError("not ported yet: config_apply_lbcs")
-
-
 def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
     """Advance one full dynamics timestep (possibly several dynamics
-    substeps). Returns the new state. `halo` must be None: the
-    domain-decomposed step is not ported yet."""
-    if halo is not None:
-        raise NotImplementedError("halo exchange is not ported yet")
-    check_namelist(nl)
+    substeps). Returns the new state.
+
+    `halo` (optional) is a parallel.halo.HaloExchange bound to a domain
+    decomposition: prognostic halos are refreshed at the top of each RK
+    stage, the tendencies once per stage (or, where the halo is too shallow
+    for the stage's substeps, the acoustic perturbations once per substep),
+    and all stencil computation proceeds redundantly over the 3-ring halo
+    so owned outputs are exact. Diagnostics are recomputed at stage start
+    from the freshly exchanged state, so no diagnostic field is exchanged.
+    """
     dynamics_split = nl.config_dynamics_split_steps
     dt_dynamics = dt / dynamics_split
     n_sub = nl.config_number_of_sub_steps
@@ -56,6 +54,8 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
     rk_sub_timestep = [dt_dynamics / 3.0, dt_dynamics / n_sub, dt_dynamics / n_sub]
     number_sub_steps = rk_substep_counts(n_sub)
 
+    if halo is not None:
+        state = halo.refresh_state(state, scalars=True)
     save = rk_ops.rk_integration_setup(state)
     state = rk_ops.compute_moist_coefficients(state, mesh)
 
@@ -75,6 +75,13 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
         tend = None
 
         for rk_step in range(3):
+            if halo is not None and (rk_step > 0 or dynamics_substep > 1):
+                # stage-top full refresh (the step-top refresh covers the
+                # first stage of the first dynamics substep); later dynamics
+                # substeps restart from a recover output whose outer halo
+                # rings are stale under the tendency exchange below
+                state = halo.refresh_state(state)
+
             # diagnostics of the current stage state
             diags = diag_ops.compute_solve_diagnostics(
                 state, mesh,
@@ -92,10 +99,18 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
                                                       rk_sub_timestep[rk_step])
 
             ns = number_sub_steps[rk_step]
+            # with an n-ring halo, exchanging the TENDENCIES once per stage
+            # makes every acoustic substep (and the recovery after them)
+            # local compute: each substep consumes one ring of validity and
+            # recovery one more, so owned outputs stay exact while
+            # ns + 1 <= n_rings
+            exchange_tend = halo is not None and ns + 1 <= halo.n_rings
             tend = tend_ops.compute_dyn_tend(state, save, static, mesh, vert,
                                              nl, rk_step, dt, prev=tend)
             if rk_step == 0 and v_from_tend and tend.v is not None:
                 state = state.replace(v=tend.v)
+            if exchange_tend:
+                tend = halo.refresh_tend(tend)
             tend = rk_ops.set_smlstep_pert_variables(tend, static, mesh, vert,
                                                      nl=nl)
             ac = ac_ops.AcousticState(
@@ -114,6 +129,10 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
                     ac, ruAvg, wwAvg, tend, coefs, state, save, static, mesh,
                     vert, nl, rk_sub_timestep[rk_step], small_step,
                     damp_previous=nl.config_divergence_damping)
+                if halo is not None and not exchange_tend:
+                    # the halo is too shallow for redundant substep compute:
+                    # refresh the perturbations every substep
+                    ac = halo.refresh_acoustic(ac)
             if nl.config_divergence_damping:
                 ac = ac_ops.divergence_damping_3d(ac, state, mesh, nl,
                                                   rk_sub_timestep[rk_step],
@@ -137,9 +156,16 @@ def atm_srk3(state, static, mesh, vert, nl, dt: float, halo=None):
     # step
     state = state.replace(rho_zz=state.rho_p + static.rho_base)
     if state.scalars is not None and nl.config_scalar_advection:
+        ruAvg, wwAvg, rho_old, scal = (state.ruAvg, state.wwAvg, rho_zz_old,
+                                       state.scalars)
+        if halo is not None:
+            ruAvg = halo.edge(ruAvg)
+            nS, Ks, Cs = scal.shape                  # species-major [nS, K, C]
+            wwAvg, rho_old, scal_flat = halo.cell(
+                wwAvg, rho_old, scal.reshape(nS * Ks, Cs))
+            scal = scal_flat.reshape(nS, Ks, Cs)
         scal_new, _ = scalar_ops.advance_scalars_mono(
-            state.scalars, rho_zz_old, state.ruAvg, state.wwAvg, mesh, vert,
-            nl, dt)
+            scal, rho_old, ruAvg, wwAvg, mesh, vert, nl, dt)
         state = state.replace(scalars=scal_new)
 
     # microphysics closes the moisture loop, where the state carries the

@@ -10,8 +10,12 @@ The files are mpas_tpu's, field for field: the history is netCDF classic
 through mesh/netcdf_io.py (scipy), the restart an `.npz` of every state
 field in its level-major [K, N] layout with the same markers. The State of
 this package has mpas_tpu's fields, so a checkpoint written by either
-package restores into the other. `save_restart_torch` / `load_restart_torch`
-write the same payload with `torch.save` (mpas_tpu writes it with orbax).
+package restores into the other. A sharded model (parallel/sharded.py)
+writes and reads mpas_tpu's sharded layout: every field as [S, ..., L]
+blocks plus the `__n_shards__` marker, whichever back end holds it; its
+stacked layout is reshaped at this file boundary only. `save_restart_torch`
+/ `load_restart_torch` write the same payload with `torch.save` (mpas_tpu
+writes it with orbax).
 """
 
 from __future__ import annotations
@@ -136,13 +140,15 @@ class HistoryWriter:
 
 
 def _payload(model) -> dict:
-    """Every state field that is set (host numpy), the step counter, the
-    layout marker and, for a sharded model, its shard count."""
-    arrays = {}
-    for f in dataclasses.fields(model.state):
-        x = getattr(model.state, f.name)
-        if x is not None:
-            arrays[f.name] = _host(x)
+    """Every state field that is set (host numpy; a sharded model's as
+    [S, ..., L] blocks), the step counter, the layout marker and, for a
+    sharded model, its shard count."""
+    if hasattr(model, "state_blocks"):
+        arrays = model.state_blocks()
+    else:
+        arrays = {f.name: _host(getattr(model.state, f.name))
+                  for f in dataclasses.fields(model.state)
+                  if getattr(model.state, f.name) is not None}
     arrays["__step_count__"] = np.asarray(model.step_count)
     # layout/version marker: state arrays are level-major [K, N];
     # load_restart refuses files without it so an element-major checkpoint
@@ -168,11 +174,22 @@ def _check_markers(path, layout, ck_shards, model):
             f"restore into a model with {mdl_shards or 'no'} shards")
 
 
+def _write(model, write):
+    """Run write() in the one process that writes a run's files (under
+    torch.distributed rank 0, the others waiting for it)."""
+    if getattr(model, "is_writer", True):
+        write()
+    if hasattr(model, "barrier"):
+        model.barrier()
+
+
 def save_restart(path: str, model):
     """Exact-restart checkpoint: every prognostic/persistent state field plus
     the step counter, as a compressed npz (host-side), in mpas_tpu's format
-    (a sharded model's state would carry its shard-count marker)."""
-    np.savez_compressed(path, **_payload(model))
+    (a sharded model's state as [S, ..., L] blocks with its shard-count
+    marker; under torch.distributed every rank calls it, rank 0 writes)."""
+    payload = _payload(model)
+    _write(model, lambda: np.savez_compressed(path, **payload))
     return path
 
 
@@ -191,7 +208,9 @@ def load_restart(path: str, model):
 def _restored_updates(path, data, model):
     """Map checkpoint fields onto the model's state fields, rejecting fields
     the restoring configuration has disabled (None) with a config-mismatch
-    error, and fields whose shape differs."""
+    error, and fields whose shape differs (a sharded model's: its
+    [S, ..., L] blocks)."""
+    sharded = hasattr(model, "from_blocks")
     updates = {}
     for f in dataclasses.fields(model.state):
         if f.name in data:
@@ -201,17 +220,34 @@ def _restored_updates(path, data, model):
                     f"checkpoint {path} carries field '{f.name}' but the "
                     f"restoring model has it disabled (None) — config "
                     f"mismatch (e.g. a moist checkpoint into a dry model)")
-            arr = torch.as_tensor(np.asarray(data[f.name])).to(
-                device=cur.device, dtype=cur.dtype)
-            if arr.shape != cur.shape:
+            arr = np.asarray(data[f.name])
+            expect = (model.block_shape(f.name) if sharded
+                      else tuple(cur.shape))
+            if arr.shape != expect:
                 raise ValueError(
                     f"checkpoint {path} field '{f.name}' has shape "
-                    f"{tuple(arr.shape)} but the restoring model expects "
-                    f"{tuple(cur.shape)} — mesh/levels mismatch, or the edge "
+                    f"{arr.shape} but the restoring model expects "
+                    f"{expect} — mesh/levels mismatch, or the edge "
                     f"numbering differs (config_orient_edges checkpoints "
                     f"are not interchangeable with the default numbering)")
-            updates[f.name] = arr.contiguous()
+            updates[f.name] = (model.from_blocks(arr, cur) if sharded else
+                               torch.as_tensor(arr).to(
+                                   device=cur.device, dtype=cur.dtype
+                               ).contiguous())
     return updates
+
+
+def gathered_state(sm, model):
+    """Global State assembled from a ShardedModel's owned entries (for
+    history output of sharded runs), on the model's device."""
+    g = sm.gather_state(model.mesh)
+    updates = {}
+    for k, v in g.items():
+        if v is not None:
+            cur = getattr(model.state, k)
+            updates[k] = torch.from_numpy(v).to(device=cur.device,
+                                                dtype=cur.dtype)
+    return model.state.replace(**updates)
 
 
 def save_restart_torch(path: str, model):
@@ -219,7 +255,7 @@ def save_restart_torch(path: str, model):
     tensors): this package's counterpart of mpas_tpu's
     `save_restart_orbax`."""
     payload = {k: torch.from_numpy(v) for k, v in _payload(model).items()}
-    torch.save(payload, path)
+    _write(model, lambda: torch.save(payload, path))
     return path
 
 

@@ -95,8 +95,11 @@ def generate_and_cache(levels: int, cache_dir: str = None,
     and read back, so every call returns the cached file's mesh: the scaling
     to the unit sphere and back moves the coordinates and areas by rounding,
     and a run resumed from a checkpoint must see the mesh of the run that
-    wrote it."""
+    wrote it. The file is written under a temporary name and renamed, so
+    processes that start together (one per shard) never read a partial
+    one."""
     import os
+    import tempfile
     from .generator import generate_mesh
     from .. import constants
     cache_dir = cache_dir or os.path.expanduser("~/.cache/mpas_tpu_torch_meshes")
@@ -106,5 +109,12 @@ def generate_and_cache(levels: int, cache_dir: str = None,
     radius = sphere_radius or constants.sphere_radius
     if os.path.exists(path):
         return load_mesh(path, sphere_radius=radius)
-    save_grid(generate_mesh(levels=levels, sphere_radius=radius, **kw), path)
+    fd, tmp = tempfile.mkstemp(suffix=".nc", dir=cache_dir)
+    os.close(fd)
+    try:
+        save_grid(generate_mesh(levels=levels, sphere_radius=radius, **kw), tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return load_mesh(path, sphere_radius=radius)

@@ -6,6 +6,14 @@ turns them, given as dicts of numpy arrays (one entry per field of
 `mpas_tpu`'s MeshArrays / VerticalArrays / StaticState / State, taken with
 `np.asarray` on the JAX side), into this package's containers on a given
 device. It imports nothing of `mpas_tpu`: the caller does the `np.asarray`.
+
+A domain-decomposed model keeps mpas_tpu's sharded layout at its files and
+its boundaries: every per-entity array as [S, ..., L] blocks, one per
+shard, each padded to the largest local count L. `stack_blocks` and
+`split_blocks` turn that layout into the stacked one of
+parallel/sharded.py's in-process back end, where the S blocks lie side by
+side on the entity axis ([..., S*L]), and back; the distributed back end
+holds block r on rank r.
 """
 
 from __future__ import annotations
@@ -47,3 +55,22 @@ def from_jax_numpy(mesh_arrays: dict, vert: dict, static: dict, state: dict,
             _convert(core_state.VerticalArrays, vert, dtype, device),
             _convert(core_state.StaticState, static, dtype, device),
             _convert(core_state.State, state, dtype, device))
+
+
+def stack_blocks(blocks):
+    """[S, ..., L] per-shard blocks (numpy or torch) -> [..., S*L], the S
+    blocks side by side on the last axis."""
+    if torch.is_tensor(blocks):
+        x = torch.movedim(blocks, 0, -2)
+    else:
+        x = np.moveaxis(np.asarray(blocks), 0, -2)
+    return x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
+
+
+def split_blocks(x, n_shards: int):
+    """[..., S*L] -> [S, ..., L]: the inverse of stack_blocks."""
+    L = x.shape[-1] // n_shards
+    x = x.reshape(tuple(x.shape[:-1]) + (n_shards, L))
+    if torch.is_tensor(x):
+        return torch.movedim(x, -2, 0)
+    return np.moveaxis(x, -2, 0)

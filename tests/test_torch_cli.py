@@ -6,8 +6,12 @@
     steps on the 162-cell generated mesh, 6 levels);
   - 2 steps, a restart from the checkpoint and 2 more steps give the
     history of 4 straight steps, bit for bit;
-  - what the port refuses it refuses with a clear message: --shards 2 (the
-    multi-GPU path is not ported), --device cuda without a card, bad
+  - the same with --shards 2 (the stacked back end in one process): its
+    history matches `python -m mpas_tpu --shards 2`'s at 1e-10 and the
+    single-device one's, its checkpoint is mpas_tpu's 2-shard layout, and
+    its restart is bit-equal;
+  - what the port refuses it refuses with a clear message: --shards N
+    under another number of processes, --device cuda without a card, bad
     --levels / --radt-steps;
   - every examples/namelist.* file loads through the port's Namelist.
 
@@ -94,11 +98,65 @@ def test_cli_restart_is_exact(home):
         assert np.array_equal(a[k][-1], b[k][-1]), k
 
 
-def test_cli_refuses_shards(capsys):
+def same_history(a, b, rtol):
+    a, b = read_netcdf(a), read_netcdf(b)
+    assert set(a) == set(b) and a["_dims"] == b["_dims"]
+    for k in a:
+        if k != "_dims":
+            assert a[k].shape == b[k].shape, k
+            assert_close(a[k], b[k], rtol=rtol)
+
+
+def test_cli_shards_matches_jax_cli(home):
+    for d in ("t", "j", "single"):
+        (home / d).mkdir()
+    rc, t_out, t_ck = run(t_cli, home / "t", "--shards", "2")
+    assert rc == 0
+    rc_j, j_out, j_ck = run(j_cli, home / "j", "--shards", "2", device=False)
+    assert rc_j == 0
+    same_history(j_out, t_out, 1e-10)
+    # the decomposition does not change the answer
+    assert run(t_cli, home / "single")[0] == 0
+    same_history(str(home / "single" / "out.nc"), t_out, 1e-10)
+    with np.load(t_ck) as f, np.load(j_ck) as g:
+        assert int(f["__n_shards__"]) == int(g["__n_shards__"]) == 2
+        assert int(f["__step_count__"]) == 4
+        assert set(f.files) == set(g.files)
+        for k in f.files:
+            assert f[k].shape == g[k].shape, k
+
+
+def test_cli_sharded_restart_is_exact(home):
+    straight, half = home / "straight", home / "half"
+    straight.mkdir()
+    half.mkdir()
+    rc, ref, _ = run(t_cli, straight, "--shards", "2")
+    assert rc == 0
+    two = [a if a != "4" else "2" for a in FLAGS] + ["--shards", "2",
+                                                     "--device", "cpu"]
+    ck = str(half / "ck.npz")
+    assert t_cli.main(two + ["--output", str(half / "a.nc"),
+                             "--checkpoint-path", ck]) == 0
+    out2 = str(half / "b.nc")
+    assert t_cli.main(two + ["--output", out2, "--checkpoint-path",
+                             str(half / "ck2.npz"), "--restart", ck]) == 0
+    a, b = read_netcdf(ref), read_netcdf(out2)
+    for k in ("u", "v", "w", "theta", "rho", "pressure", "pressure_p",
+              "surface_pressure"):
+        assert np.array_equal(a[k][-1], b[k][-1]), k
+    # a 2-shard checkpoint does not restore into a single-device run
+    with pytest.raises(ValueError, match="shards"):
+        t_cli.main(two[:-4] + ["--device", "cpu", "--output",
+                               str(half / "c.nc"), "--restart", ck])
+
+
+def test_cli_refuses_shards(capsys, monkeypatch):
+    """--shards N must match the number of processes it runs in."""
+    monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(SystemExit) as e:
         t_cli.main(["--shards", "2", "--device", "cpu"])
     assert e.value.code == 2
-    assert "multi-GPU path is not ported" in capsys.readouterr().err
+    assert "one process per shard" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,message", [

@@ -13,7 +13,8 @@ Kernel 1 also on probes.acoustic_inputs at synthetic shapes; Kernels 3 and
 4 on renumber_mesh(generate_mesh(levels=4)) (2562 cells). The radiation
 call on a state with seeded condensate, and the CLI (a short run with
 radiation, history and a checkpoint, and an exact restart from it), on the
-card."""
+card; the stacked 4-shard step (its halo refresh through Kernel 4) and a
+regional run with its LBC stream, on the card against the CPU."""
 
 import numpy as np
 import pytest
@@ -497,3 +498,62 @@ def test_cli_on_the_card(cuda, tmp_path, monkeypatch):
     a, c = read_netcdf(path("a.nc")), read_netcdf(path("c.nc"))
     for k in ("u", "w", "theta", "pressure_p", "surface_pressure"):
         assert np.array_equal(a[k], c[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ppermute", "all_to_all"])
+def test_stacked_sharded_step_on_the_card_matches_the_cpu(cuda, cpu_model,
+                                                          mode):
+    """4 shards side by side on the card: the halo refresh goes through
+    Kernel 4, bit-equal to its plain version on the exchange's own source
+    vectors; 2 steps match the same stacked steps on the CPU and the
+    single-device step on owned entries."""
+    from mpas_tpu_torch.parallel import halo
+    from mpas_tpu_torch.parallel.sharded import shard_model
+    nl = Namelist(**KW, config_halo_exchange=mode)
+    gpu = shard_model(build_model(nl, cpu_model.mesh, device="cuda"), 4)
+    cpu = shard_model(build_model(nl, cpu_model.mesh, device="cpu"), 4)
+    for tbl in (gpu.tables.cell, gpu.tables.edge):
+        x = torch.randn(41, tbl.source.shape[0], device=cuda,
+                        dtype=torch.float64)
+        assert torch.equal(K4.take_columns(x, tbl.source),
+                           K4.take_columns_plain(x, tbl.source))
+    K1.launches = K4.launches = halo.exchanges = 0
+    gpu.step(2)
+    torch.cuda.synchronize()
+    assert K1.launches == 8 and K4.launches >= halo.exchanges == 24
+    cpu.step(2)
+    single = build_model(nl, cpu_model.mesh, device="cpu")
+    single.step(2)
+    g = gpu.gather_state(cpu_model.mesh)
+    c = cpu.gather_state(cpu_model.mesh)
+    for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
+        assert rel_err(torch.from_numpy(c[n]), torch.from_numpy(g[n])) < 1e-9
+        assert rel_err(getattr(single.state, n),
+                       torch.from_numpy(g[n])) < 1e-9, n
+
+
+@pytest.mark.gpu
+def test_regional_steps_on_the_card_match_the_cpu(cuda):
+    """A regional run (NH cap, 5 relaxation rings) driven by a stream from
+    2 global steps: 2 RegionalDriver steps on the card and on the CPU."""
+    from mpas_tpu_torch.io import lbc
+    from mpas_tpu_torch.mesh.coefficients import mark_regional_zones
+    mesh = generate_mesh(levels=3, lloyd_iterations=2)
+    mesh = mark_regional_zones(mesh, mesh.latCell > 0.15, n_relax=5)
+    nl = Namelist(**KW)
+    drive = build_model(nl, mesh, device="cpu")
+    cells, edges = lbc.zone_indices(mesh)
+    snaps = [lbc.extract_lbc(drive.state, cells, edges)]
+    drive.step(2)
+    snaps.append(lbc.extract_lbc(drive.state, cells, edges))
+    stream = lbc.build_stream([0.0, 2 * nl.config_dt], cells, edges, snaps)
+    nl = nl.replace(config_apply_lbcs=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(nl, mesh, device=dev)
+        lbc.RegionalDriver(m, stream).step(2)
+        runs[dev] = m.state
+    for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
+        assert rel_err(getattr(runs["cpu"], n),
+                       getattr(runs["cuda"], n).cpu()) < 1e-9, n

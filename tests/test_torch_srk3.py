@@ -150,17 +150,27 @@ def test_ported_options_build_and_step(change):
 
 @pytest.mark.parametrize("what", ["config_apply_lbcs", "halo"])
 def test_unported_options_raise(what):
-    """What is still unported raises: the regional lateral boundary
-    conditions when the model is built and in the step, the halo in the
-    step."""
+    """The two options that raised until they were ported now run: the
+    regional lateral boundary conditions (builds and steps; on a mesh with
+    no boundary zone the step is the global one, bit for bit) and a halo
+    (a 2-shard stacked step gives the single-device step on owned
+    entries)."""
+    from mpas_tpu_torch.parallel.sharded import shard_model
     mesh = generate_mesh(levels=2, lloyd_iterations=0)
-    lbc = Namelist(**KW, config_apply_lbcs=True)
-    if what == "config_apply_lbcs":
-        with pytest.raises(NotImplementedError, match=what):
-            build_model(lbc, mesh, device="cpu")
     m = build_model(Namelist(**KW), mesh, device="cpu")
-    nl, halo = (lbc, None) if what == "config_apply_lbcs" else (m.namelist,
-                                                                object())
-    with pytest.raises(NotImplementedError, match=what):
-        srk3.atm_srk3(m.state, m.static, m.mesh_arrays, m.vert, nl, 720.0,
-                      halo=halo)
+    ref = srk3.atm_srk3(m.state, m.static, m.mesh_arrays, m.vert,
+                        m.namelist, 720.0)
+    if what == "config_apply_lbcs":
+        lbc = build_model(Namelist(**KW, config_apply_lbcs=True), mesh,
+                          device="cpu")
+        out = srk3.atm_srk3(lbc.state, lbc.static, lbc.mesh_arrays, lbc.vert,
+                            lbc.namelist, 720.0)
+        for n in ("u", "w", "theta_m", "rho_zz"):
+            assert torch.equal(getattr(out, n), getattr(ref, n)), n
+        return
+    sm = shard_model(m, 2)
+    sm.step(1)
+    g = sm.gather_state(m.mesh)
+    for n in ("u", "w", "theta_m", "rho_zz"):
+        assert torch.allclose(torch.from_numpy(g[n]), getattr(ref, n),
+                              rtol=0.0, atol=1e-12), n
