@@ -1,0 +1,19 @@
+"""Kernel 1 (csrc/acoustic_column.cu): the least time its launches could
+take, from the frozen byte and operation count at the step's (K, C, dtype),
+over their traced device time. Nothing where the trace holds no launch of
+it."""
+
+from benchmark import work
+
+UNIT = "%"
+KERNEL = "acoustic_tile_kernel"
+
+
+def read(run):
+    spans = [e - s for name, s, e in run.trace.device if KERNEL in name]
+    if not spans:
+        return None
+    z = run.sizes
+    nbytes, flops = work.acoustic_column(z["K"], z["nCells"], z["itemsize"])
+    least = work.bound_seconds(nbytes, flops, z["dtype"]) * len(spans)
+    return 100.0 * least / (sum(spans) / 1e6)
