@@ -28,8 +28,9 @@ Phases, each printing one JSON line:
      both forms in turns on the edgesOnEdge reduction;
   5. main path: 10 full-width steps with the launch counters set to 0
      first; no NaN, sane extrema, each kernel launched;
-  6. profile: PROFILE_STEPS more steps traced with torch.profiler, for
-     launches per step, the device-busy share and device time by kernel;
+  6. profile: PROFILE_STEPS more steps traced with torch.profiler
+     (benchmark/trace.py), for launches per step, the device-busy share,
+     device time by kernel and the step's top-level spans (`parts`);
   6b. sharded: the same model decomposed into SHARDS shards side by side on
      the card (parallel/sharded.py's stacked back end): Kernel 4 bit-equal
      to its plain version on the halo exchange's own source vectors, with
@@ -53,9 +54,9 @@ Phases, each printing one JSON line:
      on the default numbering: Kernel 2 at the call shapes the moist step
      adds (gather_reduce_moist), 10 counted steps (launches of Kernels 1 and
      2, the sedimentation substeps, each species' range, rainnc), and
-     profile_moist: PROFILE_STEPS traced steps and the step's three moist
-     parts (scalar transport, microphysics, PBL) traced one by one, the dry
-     part being what is left;
+     profile_moist: PROFILE_STEPS traced steps, split by the step's
+     top-level spans (`parts`: the srk3.* phases of the dynamics and the
+     moist.* tail of scalar transport, microphysics and PBL);
   7c. radiation: on the same model, Model.apply_physics (the CAM-style SW/LW
      radiation, radiation every RADT_STEPS steps as the CLI's default) once
      to warm up, then one call timed (CUDA events and the host clock, peak
@@ -126,12 +127,15 @@ check raises, so the script exits non-zero; without a CUDA device it exits
 non-zero before printing any result.
 """
 
+import bisect
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+
+from benchmark.trace import trace_steps
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core float32, data sheet
@@ -148,6 +152,11 @@ VALIDATION_PRESETS = ("jw480", "supercell")
 DRY_K2_PER_STEP = 27  # Kernel 2 launches of a dry default-numbering step
 PROFILE_STEPS = 3
 PROFILE_TOP = 15
+# the step's top-level spans (mpas_tpu_torch/tracing.py) and the runtime
+# calls that launch device work, as the benchmark's span readers name them
+SPAN_PREFIXES = ("srk3.", "moist.")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
 K1_F32_REL = 1e-4     # float32 kernel vs plain, relative to max |plain|
 K1_F64_REL = 1e-12    # float64 bound of tests/test_pallas.py
 AGREE_REL = 1e-9      # float64 card vs CPU after 2 steps, per field
@@ -184,104 +193,70 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def busy_us(events):
-    """Length of the union of the events' [start, end) device intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
-def trace(fn, torch):
-    """Run fn() under torch.profiler: the device's kernel events and the
-    traced wall time in microseconds."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("profile: the trace holds no device activity")
-    return kernels, wall_us
-
-
 def profile_steps(model, n, torch):
-    """Trace `n` steps: launches per step, the device-busy share (union of
-    the kernels' device intervals over the traced wall time), and device
-    time per step by kernel name, largest first."""
-    kernels, wall_us = trace(lambda: model.step(n), torch)
-    by_name = {}
-    for e in kernels:
-        d = by_name.setdefault(e.name, [0, 0.0])
-        d[0] += 1
-        d[1] += e.time_range.end - e.time_range.start
-    device_us = sum(v[1] for v in by_name.values())
-    by_kind = lambda *keys: sum(us for k, (_, us) in by_name.items()
-                                if any(x in k for x in keys)) / 1e3 / n
+    """Trace `n` steps (benchmark/trace.py): launches per step, the
+    device-busy share (union of the device operations' intervals over the
+    traced wall time), device time per step by kernel name, largest first,
+    and the step's top-level spans (`parts`)."""
+    tr = trace_steps(lambda: model.step(1), n, torch)
+    by_name = tr.by_name()
+    device_ms = sum(v[1] for v in by_name.values()) * 1e3
+    by_kind = lambda *keys: sum(s for k, (_, s) in by_name.items()
+                                if any(x in k for x in keys)) * 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:PROFILE_TOP]
     return dict(
-        traced_steps=n, traced_wall_ms=wall_us / 1e3,
-        device_busy_share=busy_us(kernels) / wall_us,
-        kernel_device_ms_per_step=device_us / 1e3 / n,
-        launches_per_step=len(kernels) / n,
+        traced_steps=n, traced_wall_ms=tr.wall_s * 1e3,
+        device_busy_share=tr.busy_s / tr.wall_s,
+        kernel_device_ms_per_step=device_ms / n,
+        launches_per_step=len(tr.device) / n,
         # index_select and torch.gather: one kernel in recent PyTorch builds
         gather_ms_per_step=by_kind("scatter_gather", "indexSelect"),
         cat_ms_per_step=by_kind("CatArray"),
         top_kernels=[{"name": k[:90], "launches_per_step": c / n,
-                      "ms_per_step": us / 1e3 / n,
-                      "share_of_kernel_time": us / device_us}
-                     for k, (c, us) in top])
+                      "ms_per_step": sec * 1e3 / n,
+                      "share_of_kernel_time": sec * 1e3 / device_ms}
+                     for k, (c, sec) in top],
+        parts=span_parts(tr))
 
 
-def profile_moist_parts(model, whole, torch):
-    """The moist step's four-way split. Scalar transport, microphysics and
-    the PBL are pure functions of the state, so each is traced on its own
-    on the model's current state (once to warm up, once traced): launches,
-    kernel device time, traced wall time. The dry part is what is left of
-    `whole` (profile_steps of the same model)."""
-    from mpas_tpu_torch.ops import scalars
-    from mpas_tpu_torch.physics import pbl, wsm6
-    m, s, nl = model, model.state, model.namelist
-    dt = nl.config_dt
-    parts = {
-        "scalar_transport": lambda: scalars.advance_scalars_mono(
-            s.scalars, s.rho_zz, s.ruAvg, s.wwAvg, m.mesh_arrays, m.vert, nl,
-            dt),
-        "microphysics": lambda: wsm6.apply_wsm6(
-            s, m.static, m.vert, nl, dt,
-            full=(nl.config_microphysics == "wsm6")),
-        "pbl": lambda: pbl.apply_pbl(s, m.static, m.vert, m.mesh_arrays, nl,
-                                     dt),
-    }
+def span_parts(tr):
+    """The traced steps `tr` (benchmark/trace.py) by the program's top-level
+    spans (tracing.span: `srk3.*`, `moist.*`), each a step: launches (the
+    runtime calls that launch a kernel, a copy or a fill from inside it),
+    host ms, and the device ms of the operations those calls enqueued, with
+    shares of the whole; `outside` holds what no span holds. The port
+    enqueues on one stream, so its device operations run in launch order
+    and the i-th launch call enqueued the i-th device operation. The trace
+    may miss a few device records (`unmatched_per_step`: launch calls less
+    device operations); each missed one moves at most one operation a span
+    boundary into the span before."""
+    n = tr.steps
+    spans = sorted((s, e, name) for name, s, e in tr.host
+                   if name.startswith(SPAN_PREFIXES))
+    calls = sorted(s for name, s, _ in tr.host if name in LAUNCH_CALLS)
+    ops = sorted((s, e) for _, s, e in tr.device)
+    starts = [s for s, _, _ in spans]
+    wall_ms = tr.wall_s * 1e3 / n
     out = {}
-    for name, fn in parts.items():
-        fn()
-        kernels, wall_us = trace(fn, torch)
-        out[name] = dict(
-            launches=len(kernels), wall_ms=wall_us / 1e3,
-            kernel_device_ms=sum(e.time_range.end - e.time_range.start
-                                 for e in kernels) / 1e3)
-    step_wall = whole["traced_wall_ms"] / whole["traced_steps"]
-    out["dry"] = dict(
-        launches=whole["launches_per_step"]
-        - sum(p["launches"] for p in out.values()),
-        wall_ms=step_wall - sum(p["wall_ms"] for p in out.values()),
-        kernel_device_ms=whole["kernel_device_ms_per_step"]
-        - sum(p["kernel_device_ms"] for p in out.values()))
+
+    def part(name):
+        return out.setdefault(name, dict(launches=0.0, host_ms=0.0,
+                                         kernel_device_ms=0.0))
+
+    for s, e, name in spans:
+        part(name)["host_ms"] += (e - s) / 1e3 / n
+    for k, s in enumerate(calls):
+        i = bisect.bisect_right(starts, s) - 1
+        p = part(spans[i][2] if i >= 0 and s < spans[i][1] else "outside")
+        p["launches"] += 1 / n
+        if k < len(ops):
+            p["kernel_device_ms"] += (ops[k][1] - ops[k][0]) / 1e3 / n
+    part("outside")["host_ms"] = wall_ms - sum(p["host_ms"]
+                                               for p in out.values())
     for p in out.values():
-        p["share_of_launches"] = p["launches"] / whole["launches_per_step"]
-        p["share_of_wall"] = p["wall_ms"] / step_wall
+        p["share_of_launches"] = p["launches"] * n / len(tr.device)
+        p["share_of_wall"] = p["host_ms"] / wall_ms
+    out["unmatched_per_step"] = (len(calls) - len(ops)) / n
     return out
 
 
@@ -808,17 +783,16 @@ def radiation_call(model, phys, torch):
     wall_ms = (time.perf_counter() - t0) * 1e3
     event_ms = start.elapsed_time(end)
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    events, traced_us = trace(call, torch)
-    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
-    kernels = [e for e in events if e not in copies]
+    tr = trace_steps(call, 1, torch)
+    copies = [d for d in tr.device if d[0].startswith(("Memcpy", "Memset"))]
+    kernels = [d for d in tr.device if d not in copies]
     rt = pd["rthraten"] * 86400.0
     out = dict(
         julian=RADIATION_JULIAN, wall_ms=wall_ms, event_ms=event_ms,
         launches=len(kernels), copies=len(copies),
-        kernel_device_ms=sum(e.time_range.end - e.time_range.start
-                             for e in kernels) / 1e3,
-        traced_wall_ms=traced_us / 1e3,
-        device_busy_share=busy_us(events) / traced_us,
+        kernel_device_ms=sum(e - s for _, s, e in kernels) / 1e3,
+        traced_wall_ms=tr.wall_s * 1e3,
+        device_busy_share=tr.busy_s / tr.wall_s,
         peak_mem_over_model_gb=peak_gb,
         rthraten_k_per_day=[float(rt.min()), float(rt.max())],
         qrs_max_k_per_day=float(pd["qrs"].max() * 86400.0),
@@ -1513,8 +1487,7 @@ def main():
           **moist, "moisture": check_moisture(model.state, "main_path_moist")})
     check_summary(moist["summary"], "main_path_moist")
     prof_m = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
-    emit({"phase": "profile_moist", **prof_m,
-          "parts": profile_moist_parts(model, prof_m, torch)})
+    emit({"phase": "profile_moist", **prof_m})
     check_moisture(model.state, "profile_moist")
 
     # 7c. radiation on the moist model, and steps with its heating
