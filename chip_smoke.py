@@ -52,11 +52,15 @@ Phases, each printing one JSON line:
   7b. main_path_moist: the moist path at the same width, JW with
      config_moisture, config_microphysics="wsm6" and config_pbl="ysu_lite"
      on the default numbering: Kernel 2 at the call shapes the moist step
-     adds (gather_reduce_moist), 10 counted steps (launches of Kernels 1 and
-     2, the sedimentation substeps, each species' range, rainnc), and
+     adds (gather_reduce_moist), 10 counted steps (launches of Kernels 1, 2
+     and 5, which must be one a step, the sedimentation substeps, each
+     species' range, rainnc), and
      profile_moist: PROFILE_STEPS traced steps, split by the step's
      top-level spans (`parts`: the srk3.* phases of the dynamics and the
-     moist.* tail of scalar transport, microphysics and PBL);
+     moist.* tail of scalar transport, microphysics and PBL); sediment:
+     Kernel 5 against its plain version on the step's own sedimentation
+     call with condensate seeded, float32 and float64, its times (busy,
+     cold L2, after idle) beside the plain loop's and its bound;
   7c. radiation: on the same model, Model.apply_physics (the CAM-style SW/LW
      radiation, radiation every RADT_STEPS steps as the CLI's default) once
      to warm up, then one call timed (CUDA events and the host clock, peak
@@ -122,9 +126,9 @@ power draw read before and after it (`smi_before`, `smi_after`). Then a
 `kernels` line (each kernel's launches on every path that runs it: Kernels
 1 and 2 also `launches_sharded` and `launches_regional`, Kernel 4
 `launches_sharded` and `exchange`, its check and times on the halo
-exchange), the nvidia-smi line, and last the `ok` line. Any failed
-check raises, so the script exits non-zero; without a CUDA device it exits
-non-zero before printing any result.
+exchange, Kernel 5 `launches_moist`), the nvidia-smi line, and last the
+`ok` line. Any failed check raises, so the script exits non-zero; without
+a CUDA device it exits non-zero before printing any result.
 """
 
 import bisect
@@ -160,6 +164,13 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 K1_F32_REL = 1e-4     # float32 kernel vs plain, relative to max |plain|
 K1_F64_REL = 1e-12    # float64 bound of tests/test_pallas.py
 AGREE_REL = 1e-9      # float64 card vs CPU after 2 steps, per field
+K5_F32_REL = 1e-5     # Kernel 5 vs plain, relative to max |plain| an output
+K5_F64_REL = 1e-12
+# floating-point operations of Kernel 5, counted from csrc/sediment.cu: each
+# level of a substep the fall law (its pow counted as one) and 7 more (the
+# flux 2, the update 5), each substep 2 (the surface sum), each level 4 once
+# (rhofac and rho dz)
+K5_LAW_OPS = {"rain": 7, "snow": 6, "graupel": 7}
 # Kernel 1 at synthetic shapes: levels x columns, and (tile columns, level
 # lanes) forced on one ragged shape beside the wrapper's own choice
 K1_SHAPE_LEVELS = (1, 2, 3, 24, 26, 40, 41, 64)
@@ -481,6 +492,67 @@ def check_acoustic_shapes(torch):
                 limit_rel={"float32": K1_F32_REL, "float64": K1_F64_REL},
                 worst_rel={k: v[0] for k, v in worst.items()},
                 worst_case={k: v[1] for k, v in worst.items()})
+
+
+def sediment_flops(K, C, laws, nfall):
+    return sum(C * (nfall * (K * (K5_LAW_OPS[law] + 7) + 2) + 4 * K)
+               for law in laws)
+
+
+def check_sediment(model, torch):
+    """Kernel 5 against its plain version at the moist step's shape: the
+    arguments of the step's own sedimentation call (rain, snow and graupel
+    of scalars, rho and dz of kessler.column_inputs, dt, nfall) on the
+    model's state with condensate seeded across the freezing level
+    (probes.seeded_condensate), in float32 and (widened) float64: the
+    largest relative error of each output, whether all are bit-equal, the
+    kernel's time on a busy device, with a cold L2 and launched onto an idle
+    one (median of 20 launches, CUDA events), the plain loop's time and the
+    bound."""
+    from mpas_tpu_torch.physics import kessler, sediment
+    from mpas_tpu_torch.probes import cuda_ms, seeded_condensate
+    state = seeded_condensate(model.state, seed=0)
+    rho, _, dz = kessler.column_inputs(state, model.static)
+    nl = model.namelist
+    # full WSM6 sediments qr, qs and qg (scalars 2, 4, 5)
+    laws = sediment.LAWS
+    qs = [state.scalars[i] for i in (2, 4, 5)]
+    dt, nfall = nl.config_dt, nl.config_kessler_nfall
+    K, C = rho.shape
+    res = {}
+    for name, cast in (("float32", lambda t: t),
+                       ("float64", lambda t: t.double())):
+        a_qs, a_rho, a_dz = [cast(q) for q in qs], cast(rho), cast(dz)
+        run = lambda: sediment.sediment_species(a_qs, laws, a_rho, a_dz, dt,
+                                                nfall)
+        plain = lambda: sediment.sediment_species_plain(a_qs, laws, a_rho,
+                                                        a_dz, dt, nfall)
+        q_k, acc_k = run()
+        q_p, acc_p = plain()
+        torch.cuda.synchronize()
+        outs, refs = q_k + acc_k, q_p + acc_p
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise RuntimeError(f"sediment {name}: non-finite output")
+        rel = [float((o - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+               for o, r in zip(outs, refs)]
+        limit = K5_F32_REL if name == "float32" else K5_F64_REL
+        if not max(rel) <= limit:
+            raise RuntimeError(f"sediment {name}: rel err {rel} > {limit}")
+        if not min(float(a.max()) for a in acc_p) > 0.0:
+            raise RuntimeError(f"sediment {name}: a species never reached "
+                               "the ground")
+        nb = nbytes(a_rho, a_dz, *a_qs, *q_k, *acc_k)
+        flops = sediment_flops(K, C, laws, nfall)
+        b_ms, b_by = bound(nb, flops, name)
+        res[name] = dict(
+            K=K, C=C, laws=list(laws), nfall=nfall, dt=dt,
+            max_rel_err=max(rel), rel_err_by_output=rel, limit_rel=limit,
+            bit_equal=all(torch.equal(o, r) for o, r in zip(outs, refs)),
+            ms=cuda_ms(run), ms_cold_l2=cuda_ms(run, cold_l2=True),
+            ms_after_idle=cuda_ms(run, after_idle=True),
+            plain_ms=cuda_ms(plain), bytes=nb, flops=flops, bound_ms=b_ms,
+            bound_by=b_by)
+    return res
 
 
 def index_vector_names(mesh_arrays):
@@ -1474,8 +1546,15 @@ def main():
     calls_moist = set(calls)
     del calls, new_calls
     torch.cuda.empty_cache()
+    from mpas_tpu_torch.physics import sediment
+    sediment.launches = 0
     moist = timed(lambda: counted_steps(model, torch,
                                         k2_more_than=DRY_K2_PER_STEP))
+    moist["sediment_launches"] = sediment.launches
+    if moist["sediment_launches"] != moist["steps"]:
+        raise RuntimeError(f"main_path_moist: Kernel 5 launched "
+                           f"{sediment.launches} times in {moist['steps']} "
+                           "steps, not once a step")
     emit({"phase": "main_path_moist", "cells": model.mesh.nCells,
           "edges": model.mesh.nEdges, "levels": 41, "dtype": "float32",
           "dt": 300.0, "microphysics": model.namelist.config_microphysics,
@@ -1489,6 +1568,8 @@ def main():
     prof_m = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
     emit({"phase": "profile_moist", **prof_m})
     check_moisture(model.state, "profile_moist")
+    k5 = timed(lambda: check_sediment(model, torch))
+    emit({"phase": "sediment", **k5})
 
     # 7c. radiation on the moist model, and steps with its heating
     from mpas_tpu_torch.physics.driver import physics_init
@@ -1757,6 +1838,18 @@ def main():
          "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["bound_by"], "library_ms": a["library_ms"],
          "shape": [a["K"], a["C"], a["R"]]},
+        {"name": "sediment_species", "route": "cuda",
+         "source": "mpas_tpu_torch/csrc/sediment.cu",
+         "replaces": "mpas_tpu/physics/kessler.py:89",
+         "launches_moist": moist["sediment_launches"],
+         **{k: k5["float32"][k] for k in
+            ("max_rel_err", "bit_equal", "ms", "ms_cold_l2", "ms_after_idle",
+             "plain_ms", "bound_ms", "bound_by", "laws", "nfall")},
+         "library_ms": None,
+         "shape": [k5["float32"]["K"], k5["float32"]["C"]],
+         "float64": {k: k5["float64"][k] for k in
+                     ("ms", "ms_cold_l2", "bound_ms", "plain_ms",
+                      "max_rel_err", "bit_equal")}},
     ]
     emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

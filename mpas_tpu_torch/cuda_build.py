@@ -32,7 +32,8 @@ SOURCES = (("acoustic_column.cu", (), "acoustic_column"),
            ("gather_reduce.cu", ("-DGATHER_REDUCE_F32",), "gather_reduce_f32"),
            ("gather_reduce.cu", ("-DGATHER_REDUCE_F64",), "gather_reduce_f64"),
            ("windowed_reduce.cu", (), "windowed_reduce"),
-           ("take_columns.cu", (), "take_columns"))
+           ("take_columns.cu", (), "take_columns"),
+           ("sediment.cu", (), "sediment"))
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -168,6 +169,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"take_columns_{form}_{suffix}")
             fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
             fn.restype = _I
+        fn = getattr(lib, f"sediment_species_{suffix}")
+        fn.argtypes = [_P] * 3 + [_I] * 4 + [_P] * 4 + [_I] * 3 + [_D, _P]
+        fn.restype = _I
     lib.windowed_reduce_f32.argtypes = [_P] * 6 + [_I] * 10 + [_P]
     lib.windowed_reduce_f32.restype = _I
     lib.mpas_cuda_error_string.argtypes = [_I]

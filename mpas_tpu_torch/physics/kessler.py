@@ -17,9 +17,11 @@ ratios). The update runs inside the SRK3 step after scalar transport and
 rediagnoses the coupled state (rtheta_p, exner, pressure_p) from the
 equation of state exactly as atm_init_coupled_diagnostics does.
 
-All operations are elementwise on level-major [K, C] tensors; the
-sedimentation substeps are a Python loop of `nfall` passes (`nfall` is
-static, from the namelist).
+All operations are elementwise on level-major [K, C] tensors. The
+sedimentation substeps (`nfall`, static, from the namelist) are `sediment`,
+a Python loop of `nfall` passes; `kessler` runs them through
+`sediment.sediment_species`, which is that loop on the CPU and one launch
+of Kernel 5 on the card.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import math
 import torch
 
 from .. import constants
+from .sediment import sediment_species
 
 # Kessler/WRF constants (module_mp_kessler.F)
 XLV = constants.xlv
@@ -88,19 +91,12 @@ def sediment(q, rho, dz, dt: float, nfall: int, fall_velocity):
     return q, accum
 
 
-def _sediment(qr, rho, dz, dt: float, nfall: int):
-    """Upwind rain sedimentation over `nfall` substeps.
-
-    Returns (qr_new, rain_accum [C] in mm == kg/m^2 of water)."""
-    return sediment(qr, rho, dz, dt, nfall, _fall_velocity)
-
-
 def kessler(theta, qv, qc, qr, rho, exner, pressure, dz, dt: float,
             nfall: int):
     """One Kessler update.  All inputs level-major [K, C]; theta is the
     dry potential temperature.  Returns (theta, qv, qc, qr, rain [C] mm)."""
     # --- 1. sedimentation ---
-    qr, rain = _sediment(qr, rho, dz, dt, nfall)
+    (qr,), (rain,) = sediment_species([qr], ("rain",), rho, dz, dt, nfall)
 
     # --- 2. autoconversion + accretion (production of rain) ---
     factorn = 1.0 / (1.0 + C3 * dt * torch.clamp(qr, min=0.0) ** C4)

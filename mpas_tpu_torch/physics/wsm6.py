@@ -28,7 +28,9 @@ Shared process set (both tiers):
                water at -40 C;
   sedimentation: upwind flux for rain (Kessler fall law), snow
                (vt = 11.72 (rho qs)^0.25 / sqrt(rho-fac), capped) and
-               graupel, CFL substeps as in physics/kessler.py.
+               graupel, CFL substeps as in physics/kessler.py, all species
+               in one call of physics/sediment.py (one launch of Kernel 5
+               on the card).
 
 Latent heating uses Lv / Ls / Lf consistently so a closed column conserves
 total water (vapor + condensate + accumulated precip) and the moist
@@ -48,8 +50,8 @@ import torch
 from .. import constants
 from . import kessler
 from .kessler import (C1, C2, C3, C4, EP2, SVP1, SVP2, SVP3, SVPT0,
-                      _sediment, column_inputs, density_factor, recouple,
-                      sediment)
+                      column_inputs, density_factor, recouple)
+from .sediment import sediment_species
 
 XLV = constants.xlv
 XLS = constants.xls
@@ -100,21 +102,11 @@ def _snow_fall_velocity(qs, rho, rhofac=None):
     return torch.clamp(vt, max=MAX_VT_SNOW)
 
 
-def _sediment_snow(qs, rho, dz, dt: float, nfall: int):
-    """Upwind snow sedimentation (kessler.sediment with the snow fall
-    law)."""
-    return sediment(qs, rho, dz, dt, nfall, _snow_fall_velocity)
-
-
 def _graupel_fall_velocity(qg, rho, rhofac=None):
     rhofac = density_factor(rho) if rhofac is None else rhofac
     vt = (GRAUPEL_VCOEF
           * (torch.clamp(rho * qg, min=0.0) / GRAUPEL_PIRN) ** 0.2 * rhofac)
     return torch.clamp(vt, max=MAX_VT_GRAUPEL)
-
-
-def _sediment_graupel(qg, rho, dz, dt: float, nfall: int):
-    return sediment(qg, rho, dz, dt, nfall, _graupel_fall_velocity)
 
 
 def _wsm6_core(theta, qv, qc, qr, qi, qs, qg, rho, exner, pressure, dz,
@@ -128,12 +120,16 @@ def _wsm6_core(theta, qv, qc, qr, qi, qs, qg, rho, exner, pressure, dz,
     zero = torch.zeros_like(theta)
     pos = lambda x: torch.clamp(x, min=0.0)
 
-    # --- 1. sedimentation ---
-    qr, rain = _sediment(qr, rho, dz, dt, nfall)
-    qs, snow = _sediment_snow(qs, rho, dz, dt, nfall)
+    # --- 1. sedimentation: every falling species in one call ---
+    falling, laws = [qr, qs], ("rain", "snow")
+    if has_g:
+        falling, laws = falling + [qg], laws + ("graupel",)
+    falling, precip = sediment_species(falling, laws, rho, dz, dt, nfall)
+    qr, qs = falling[:2]
+    rain, snow = precip[:2]
     graup = 0.0
     if has_g:
-        qg, graup = _sediment_graupel(qg, rho, dz, dt, nfall)
+        qg, graup = falling[2], precip[2]
 
     # --- 2. warm-rain conversions (Kessler form) ---
     factorn = 1.0 / (1.0 + C3 * dt * pos(qr) ** C4)

@@ -21,7 +21,8 @@
     checks of the kernel at shapes the step does not give it.
   - `seeded_condensate(state, seed)` puts condensate across the freezing
     level into a moist state, for the checks that need cloud and ice (the
-    JW wave forms none in a few steps).
+    JW wave forms none in a few steps); `sediment_inputs(K, C, seed)` makes
+    falling species and their columns at any shape, for Kernel 5.
   - `compare_numberings(nl, mesh)` times the step on the default and on the
     ownership-aligned edge numbering in turns, both models on one card.
     `python -m mpas_tpu_torch.probes` runs it at full width (x1.40962, 41
@@ -413,6 +414,40 @@ def seeded_condensate(state, seed=0, share=0.7):
         where = (t > 268.0) if phase == "liquid" else (t > 220.0) & (t < 273.15)
         new[i + 1] = q * where.to(s.dtype) * factor[i]
     return state.replace(scalars=new)
+
+
+def sediment_inputs(K, C, seed=0, extremes=False):
+    """Column physics inputs at any shape, as float64 numpy [K, C] arrays
+    from a seed, for the checks of Kernel 5 (physics/sediment.py) and of the
+    schemes that call it at shapes no run gives: {"qr", "qs", "qg", "rho",
+    "dz", "t", "p"}. Layers stretched to 30 km (dz grows as the 1.4th power
+    of height: 166 m at the bottom of 41 levels), a lapse-rate temperature
+    with noise down to 210 K, pressure with a 7 km scale height, rho the
+    dry density; rain, snow and graupel get their mixing ratio of
+    CONDENSATE where their phase can live, times a factor in [0.5, 1.5) at
+    70% of the points, as `seeded_condensate` gives a state. With
+    `extremes`, every 7th column from column 2 holds no condensate and the
+    one after it 50 g/kg of each species, at which each fall law reaches
+    its cap in the thin air of the upper levels."""
+    rng = np.random.default_rng(seed)
+    zi = 30000.0 * np.linspace(0.0, 1.0, K + 1) ** 1.4
+    z = 0.5 * (zi[1:] + zi[:-1])[:, None]
+    t = (np.maximum(300.0 - 6.5e-3 * z, 210.0)
+         + rng.normal(0.0, 1.0, (K, C)))
+    p = 1.0e5 * np.exp(-z / 7000.0) * np.ones((K, C))
+    out = dict(rho=p / (constants.rgas * t), t=t, p=p,
+               dz=np.repeat(np.diff(zi)[:, None], C, axis=1))
+    liquid = t > 268.0
+    ice = (t > 220.0) & (t < 273.15)
+    for name, q, phase in CONDENSATE:
+        if name not in ("qr", "qs", "qg"):
+            continue
+        factor = (0.5 + rng.random((K, C))) * (rng.random((K, C)) < 0.7)
+        out[name] = q * factor * (liquid if phase == "liquid" else ice)
+        if extremes:
+            out[name][:, 2::7] = 0.0
+            out[name][:, 3::7] = 0.05
+    return out
 
 
 def compare_numberings(nl, mesh):

@@ -16,13 +16,15 @@ radiation, history and a checkpoint, and an exact restart from it), on the
 card; the stacked 4-shard step (its halo refresh through Kernel 4) and a
 regional run with its LBC stream, on the card against the CPU; the
 supercell's validation runner (mesh level 3) on the card against the
-CPU."""
+CPU. Kernel 5 (sedimentation) on probes.sediment_inputs at the moist step's
+shape (41 levels, 40962 columns, 53 substeps) and at synthetic shapes, and
+inside the schemes that call it."""
 
 import numpy as np
 import pytest
 import torch
 
-from mpas_tpu_torch import probes
+from mpas_tpu_torch import constants, probes
 from mpas_tpu_torch.config import Namelist
 from mpas_tpu_torch.dynamics.model import build_model
 from mpas_tpu_torch.mesh.generator import generate_mesh
@@ -33,10 +35,17 @@ from mpas_tpu_torch.ops import gather_reduce as K2
 from mpas_tpu_torch.ops import recover as TR
 from mpas_tpu_torch.ops import take_columns as K4
 from mpas_tpu_torch.ops import windowed as K3
+from mpas_tpu_torch.physics import kessler as TK
+from mpas_tpu_torch.physics import sediment as K5
+from mpas_tpu_torch.physics import wsm6 as TW
 
 KW = dict(config_nvertlevels=8, config_ztop=30000.0, dtype="float64",
           config_jw_u_perturbation=1.0)
 DTS = 240.0
+# Kernel 5 against its plain version, relative to the largest |plain| of
+# each output, after all substeps
+K5_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+K5_DT, K5_NFALL = 300.0, 53       # the moist benchmark step's
 
 
 @pytest.fixture(scope="module")
@@ -434,10 +443,12 @@ def test_one_moist_step_on_the_card_matches_the_cpu(cuda, cpu_model, changes):
     nl = Namelist(**KW, **changes)
     gpu = build_model(nl, cpu_model.mesh, device="cuda")
     cpu = build_model(nl, cpu_model.mesh, device="cpu")
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K5.launches = 0
     gpu.step(1)
     cpu.step(1)
     assert K1.launches == 4 and K2.launches > 27
+    # the step's one microphysics update sediments through one launch
+    assert K5.launches == (1 if "config_microphysics" in changes else 0)
     names = ["u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"]
     if cpu.state.scalars is not None:
         names += ["scalars", "rainnc"]
@@ -585,3 +596,121 @@ def test_supercell_runner_on_the_card_matches_the_cpu(cuda):
     for key in ("w", "theta_m", "scalars", "rainnc"):
         assert rel_err(torch.from_numpy(a[key]),
                        torch.from_numpy(b[key])) < 1e-9, key
+
+
+def _sediment_args(cuda, K, C, dtype, laws=K5.LAWS, extremes=False, seed=0):
+    d = probes.sediment_inputs(K, C, seed=seed, extremes=extremes)
+    on = lambda a: torch.from_numpy(a).to(cuda, dtype)
+    species = dict(rain="qr", snow="qs", graupel="qg")
+    return [on(d[species[law]]) for law in laws], on(d["rho"]), on(d["dz"])
+
+
+def _hold_sediment(cuda, K, C, dtype, laws=K5.LAWS, extremes=False):
+    """Kernel 5 against its plain version on the card; the plain outputs."""
+    qs, rho, dz = _sediment_args(cuda, K, C, dtype, laws, extremes, K + C)
+    K5.launches = 0
+    q_k, acc_k = K5.sediment_species(qs, laws, rho, dz, K5_DT, K5_NFALL)
+    q_p, acc_p = K5.sediment_species_plain(qs, laws, rho, dz, K5_DT,
+                                           K5_NFALL)
+    torch.cuda.synchronize()
+    assert K5.launches == 1
+    for out, ref in zip(q_k + acc_k, q_p + acc_p):
+        assert out.shape == ref.shape and out.dtype == dtype
+        assert bool(torch.isfinite(out).all())
+        assert rel_err(ref.double(), out.double()) <= K5_RTOL[dtype]
+    return qs, rho, q_p, acc_p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sediment_kernel_at_the_step_shape(cuda, dtype):
+    """Rain, snow and graupel of seeded condensate at the moist step's
+    shape and substeps: every species falls and reaches the ground."""
+    qs, _, q_p, acc_p = _hold_sediment(cuda, 41, 40962, dtype)
+    for q, new, acc in zip(qs, q_p, acc_p):
+        assert not torch.equal(q, new) and float(acc.max()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 33, 1000])
+@pytest.mark.parametrize("K", [1, 2, 26, 41, 64])
+def test_sediment_kernel_at_synthetic_shapes(cuda, K, C, dtype):
+    """Down to one level and one column, column counts that are no multiple
+    of a block, columns with no condensate (every 7th from column 2) and
+    columns where each fall law reaches its cap (the ones after them)."""
+    qs, rho, q_p, acc_p = _hold_sediment(cuda, K, C, dtype, extremes=True)
+    for q in q_p:
+        assert not bool(q[:, 2::7].any())
+    for acc in acc_p:
+        assert not bool(acc[2::7].any())
+    if K >= 26 and C > 3:
+        caps = ((TK._fall_velocity, TK.MAX_VT),
+                (TW._snow_fall_velocity, TW.MAX_VT_SNOW),
+                (TW._graupel_fall_velocity, TW.MAX_VT_GRAUPEL))
+        for q, (law, cap) in zip(qs, caps):
+            assert bool((law(q, rho) == cap).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("laws", [("rain",), ("snow",), ("graupel",),
+                                  ("rain", "snow"), ("graupel", "rain", "rain")],
+                         ids="-".join)
+def test_sediment_kernel_takes_any_species_list(cuda, laws, dtype):
+    _hold_sediment(cuda, 41, 1000, dtype, laws, extremes=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["kessler", "wsm6lite", "wsm6full"])
+def test_one_sediment_launch_per_scheme_update(cuda, scheme):
+    """Each scheme's update launches Kernel 5 once, and matches the same
+    update on the CPU (float64) at the card-against-CPU tolerance of the
+    step tests."""
+    d = probes.sediment_inputs(41, 1000, seed=11)
+    exner = (d["p"] / 1.0e5) ** (constants.rgas / constants.cp)
+    cols = dict(theta=d["t"] / exner, qv=0.006 * (d["p"] / 1.0e5),
+                qc=d["qr"] * 2.0, qr=d["qr"], qi=d["qs"] * 0.5, qs=d["qs"],
+                qg=d["qg"], rho=d["rho"], exner=exner, p=d["p"], dz=d["dz"])
+    names = {"kessler": ("theta", "qv", "qc", "qr"),
+             "wsm6lite": ("theta", "qv", "qc", "qr", "qi", "qs"),
+             "wsm6full": ("theta", "qv", "qc", "qr", "qi", "qs", "qg")}[scheme]
+    names += ("rho", "exner", "p", "dz")
+    fn = TK.kessler if scheme == "kessler" else getattr(TW, scheme)
+    cpu = fn(*(torch.from_numpy(cols[n]) for n in names), K5_DT, K5_NFALL)
+    K5.launches = 0
+    gpu = fn(*(torch.from_numpy(cols[n]).to(cuda) for n in names), K5_DT,
+             K5_NFALL)
+    torch.cuda.synchronize()
+    assert K5.launches == 1
+    for ref, out in zip(cpu, gpu):
+        if isinstance(ref, torch.Tensor):
+            assert rel_err(ref, out.cpu()) < 1e-9
+
+
+@pytest.mark.gpu
+def test_sediment_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    qs, rho, dz = _sediment_args(cuda, 4, 10, torch.float32,
+                                 ("rain", "snow"))
+    laws = ("rain", "snow")
+    with pytest.raises(TypeError):
+        K5.sediment_species([q.half() for q in qs], laws, rho.half(),
+                            dz.half(), K5_DT, 2)
+    with pytest.raises(TypeError):
+        K5.sediment_species([qs[0].double(), qs[1]], laws, rho, dz, K5_DT, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K5.sediment_species([qs[0], qs[1].t().contiguous().t()], laws, rho,
+                            dz, K5_DT, 2)
+    with pytest.raises(ValueError, match="device"):
+        K5.sediment_species(qs, laws, rho, dz.cpu(), K5_DT, 2)
+    for nfall in (0, -1):
+        with pytest.raises(ValueError, match="nfall"):
+            K5.sediment_species(qs, laws, rho, dz, K5_DT, nfall)
+    with pytest.raises(ValueError, match="law"):
+        K5.sediment_species(qs, ("rain", "hail"), rho, dz, K5_DT, 2)
+    with pytest.raises(ValueError):
+        K5.sediment_species(qs, laws, rho, dz[:, :9].contiguous(), K5_DT, 2)
+    # a column of more levels than a block's shared memory holds
+    deep = [torch.zeros((300, 10), dtype=torch.float64, device=cuda)] * 2
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K5.sediment_species(deep, laws, deep[0], deep[0], K5_DT, 2)

@@ -29,6 +29,7 @@ from mpas_tpu_torch.config import Namelist
 from mpas_tpu_torch.dynamics import srk3
 from mpas_tpu_torch.physics import kessler as TK
 from mpas_tpu_torch.physics import pbl as TP
+from mpas_tpu_torch.physics import sediment as TS
 from mpas_tpu_torch.physics import wsm6 as TW
 
 from test_torch_cellform import KW, carry
@@ -91,14 +92,20 @@ def test_fall_velocity_matches(species, law):
 
 @pytest.mark.parametrize("species,fn", [
     ("qr", "_sediment"), ("qs", "_sediment_snow"), ("qg", "_sediment_graupel")])
-@pytest.mark.parametrize("nfall", [1, 7])
+@pytest.mark.parametrize("nfall", [1, 7, 53])
 def test_sediment_matches(species, fn, nfall):
+    """mpas_tpu's per-species loop against the port's plain sedimentation
+    with the species' law, up to the 53 substeps of the benchmark's moist
+    step."""
     c = columns(285.0)
     names = (species, "rho", "dz")
     j_in, t_in = both(c, names)
-    J, T = (JK, TK) if species == "qr" else (JW, TW)
+    J = JK if species == "qr" else JW
     j_out = getattr(J, fn)(*j_in, DT, nfall)
-    t_out = getattr(T, fn)(*t_in, DT, nfall)
+    law = {"qr": "rain", "qs": "snow", "qg": "graupel"}[species]
+    (q,), (acc,) = TS.sediment_species_plain([t_in[0]], (law,), *t_in[1:],
+                                            DT, nfall)
+    t_out = (q, acc)
     assert float(t_out[1].min()) > 0.0        # precipitation reached the ground
     assert_close(j_out, t_out)
     # the substeps wrote into no input
