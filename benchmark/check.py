@@ -2,9 +2,10 @@
 
 The window's state at one step drawn from the seed (u, w, theta_m, rho_zz
 and, where the run carries them, scalars and rainnc) is held against the
-frozen plain reference (`reference/`), which loads the same grid file, takes
-the same seeded inputs, builds its own coefficients and initial state in
-float64 and runs as many steps. Each field's gap is the largest difference
+frozen plain reference (`reference/`, or the configuration's own module
+under `references/`), which loads the same grid file, takes the same
+seeded inputs, builds its own coefficients and initial state in float64
+and runs as many steps. Each field's gap is the largest difference
 from the reference over the largest change of the reference's field since
 its initial state (per species for scalars); rainnc, which starts at 0,
 is compared by root mean square. The window's last state must hold no
@@ -73,12 +74,17 @@ def rounded(state, dtype):
 
 def reference_run(cell, draws, grid, steps: int, device, dtype=torch.float64,
                   store=None):
-    """(initial fields, fields after `steps` steps) of the reference, as
+    """(initial fields, fields after `steps` steps) of the reference (the
+    configuration's own `references/` module where it names one), as
     float64 numpy. With `store`, every value the state keeps between steps
     is rounded to that type."""
-    nl = RefNamelist(**cell.namelist,
-                     config_jw_u_perturbation=draws.jw_u_perturbation)
-    model = ref_build_model(nl, ref_load_mesh(str(grid)), device, dtype)
+    namelist = dict(cell.namelist,
+                    config_jw_u_perturbation=draws.jw_u_perturbation)
+    if cell.reference is not None:
+        model = cell.reference.build(namelist, grid, device, dtype)
+    else:
+        model = ref_build_model(RefNamelist(**namelist),
+                                ref_load_mesh(str(grid)), device, dtype)
     s = model.state
     n_scalars = 0 if s.scalars is None else s.scalars.shape[0]
     model.state = with_inputs(s, condensate_for(

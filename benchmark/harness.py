@@ -1,10 +1,11 @@
 """One run of one cell: set-up, warm-up, the timed window, the traced steps
 (with `trace`), the comparison with the reference, and the result line.
 
-The window drives `Model.step(1)` of the model that
-`mpas_tpu_torch.dynamics.model.build_model` returns, back to back as a
-user's run does, with no synchronisation inside it; a CUDA event recorded
-after each step gives the step intervals, read after the window.
+The window drives `step(1)` of the model that
+`mpas_tpu_torch.dynamics.model.build_model` returns (or the configuration's
+own `programs/` module builds), back to back as a user's run does, with no
+synchronisation inside it; a CUDA event recorded after each step gives the
+step intervals, read after the window.
 """
 
 from __future__ import annotations
@@ -64,13 +65,19 @@ class StepClock:
 
 
 def build_program(cell, draws, grid, device):
-    """The program's model for this cell and seed, with the seeded inputs."""
-    from mpas_tpu_torch.config import Namelist
-    from mpas_tpu_torch.dynamics.model import build_model
-    from mpas_tpu_torch.mesh.loader import load_mesh
-    nl = Namelist(**cell.namelist,
-                  config_jw_u_perturbation=draws.jw_u_perturbation)
-    model = build_model(nl, load_mesh(str(grid)), device=device)
+    """The program's model for this cell and seed, with the seeded inputs:
+    the configuration's own `programs/` module where it names one, else
+    `mpas_tpu_torch`'s `build_model`."""
+    namelist = dict(cell.namelist,
+                    config_jw_u_perturbation=draws.jw_u_perturbation)
+    if cell.program is not None:
+        model = cell.program.build(namelist, grid, device)
+    else:
+        from mpas_tpu_torch.config import Namelist
+        from mpas_tpu_torch.dynamics.model import build_model
+        from mpas_tpu_torch.mesh.loader import load_mesh
+        model = build_model(Namelist(**namelist), load_mesh(str(grid)),
+                            device=device)
     s = model.state
     n_scalars = 0 if s.scalars is None else s.scalars.shape[0]
     K, C = s.theta_m.shape
@@ -89,9 +96,12 @@ def sizes_of(model) -> dict:
                 n_sub=nl.config_number_of_sub_steps,
                 split=nl.config_dynamics_split_steps,
                 n_scalars=0 if s.scalars is None else int(s.scalars.shape[0]),
+                microphysics=nl.config_microphysics,
+                nfall=nl.config_kessler_nfall,
                 itemsize=s.theta_m.element_size(),
                 index_itemsize=m.edgesOnEdge.element_size(),
-                dtype=str(s.theta_m.dtype).replace("torch.", ""))
+                dtype=str(s.theta_m.dtype).replace("torch.", ""),
+                dt=nl.config_dt)
 
 
 def power_limit_w():

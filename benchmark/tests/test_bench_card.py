@@ -30,7 +30,7 @@ def test_run_prints_a_correct_line(trace):
     assert res["device"]["platform"] == "gpu"
     if trace:
         assert res["device"]["busy_s"] > 0
-        assert "launches_per_step" in res["metrics"]
+        assert "sim_days_per_hour.dry" in res["metrics"]
 
 
 @pytest.mark.gpu

@@ -1,5 +1,5 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the program. Modules are compared by their
+references import nothing of the program. Modules are compared by their
 top-level name whole: `mpas_tpu_torch` begins with `mpas_tpu` and is not
 it."""
 
@@ -12,20 +12,25 @@ from benchmark import harness, spec
 FORBIDDEN = {"jax", "jaxlib", "flax", "mpas_tpu"}
 
 
-def imported(path) -> set:
-    """Top-level names of every module a file imports (relative imports
-    stay inside the benchmark)."""
+def modules(path) -> set:
+    """Full names of every module a file imports (relative imports stay
+    inside the benchmark)."""
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
+            names |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split(".")[0])
+            names.add(node.module)
         elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
               in ("import_module", "__import__") and node.args
               and isinstance(node.args[0], ast.Constant)):
-            names.add(str(node.args[0].value).split(".")[0])
+            names.add(str(node.args[0].value))
     return names
+
+
+def imported(path) -> set:
+    """Top-level names of every module a file imports."""
+    return {m.split(".")[0] for m in modules(path)}
 
 
 def sources(folder):
@@ -40,10 +45,19 @@ def test_nothing_imports_jax():
 
 
 def test_reference_imports_nothing_of_the_program():
+    """The frozen reference, and every configuration's own reference
+    module under `references/`, which may build on the frozen one (a
+    module loaded from its file imports it by its absolute name)."""
     allowed = {"__future__", "dataclasses", "typing", "math", "time",
                "warnings", "json", "numpy", "torch", "scipy"}
-    for path in sources(spec.ROOT / "reference"):
-        assert imported(path) <= allowed, (path, imported(path) - allowed)
+    files = sources(spec.ROOT / "reference") + sources(
+        spec.ROOT / "references")
+    assert files
+    for path in files:
+        outside = {m for m in modules(path) if m.split(".")[0] not in allowed
+                   and m.split(".")[:2] not in (["benchmark", "reference"],
+                                                ["benchmark", "references"])}
+        assert not outside, (path, outside)
 
 
 @pytest.mark.parametrize("name,hit", [

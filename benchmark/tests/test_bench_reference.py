@@ -55,3 +55,35 @@ def test_reference_refuses_what_it_does_not_carry(option, value, grid_dir):
     with pytest.raises(ValueError, match=option):
         build_model(nl, load_mesh(str(inputs.grid_file(2, grid_dir))),
                     "cpu", torch.float64)
+
+
+@pytest.mark.parametrize("cell_name", ["dry_120km", "moist_120km"])
+def test_frozen_cells_run_the_frozen_reference(cell_name, grid_dir):
+    """The benchmark's own cells name no module of their own, and the
+    comparison's reference run is the frozen reference called directly."""
+    from benchmark.reference.config import Namelist as RefNamelist
+    from benchmark.reference.dynamics.model import build_model
+    from benchmark.reference.mesh.loader import load_mesh
+    cell = tiny(spec.load_cell(cell_name))
+    assert cell.program is None and cell.reference is None
+    assert not {"program", "reference"} & set(cell.config)
+    draws = inputs.draw(2 ** 35 + 1, cell.traffic)
+    grid = inputs.grid_file(cell.traffic["grid_level"], grid_dir)
+    device = torch.device("cpu")
+    ref0, ref = check.reference_run(cell, draws, grid, 3, device)
+
+    model = build_model(
+        RefNamelist(**cell.namelist,
+                    config_jw_u_perturbation=draws.jw_u_perturbation),
+        load_mesh(str(grid)), device, torch.float64)
+    s = model.state
+    n_scalars = 0 if s.scalars is None else s.scalars.shape[0]
+    model.state = check.with_inputs(s, check.condensate_for(
+        cell, draws, n_scalars, *s.theta_m.shape))
+    direct0 = check.to_host(check.fields(model.state))
+    model.step(3)
+    direct = check.to_host(check.fields(model.state))
+    assert sorted(ref) == sorted(direct)
+    for k in ref:
+        np.testing.assert_array_equal(ref0[k], direct0[k])
+        np.testing.assert_array_equal(ref[k], direct[k])

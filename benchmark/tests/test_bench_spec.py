@@ -5,11 +5,13 @@ alone."""
 
 import json
 import shutil
+import time
 
 import pytest
+import torch
 
-from benchmark import spec
-from conftest import ROOT
+from benchmark import harness, inputs, spec
+from conftest import ROOT, tiny
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
@@ -118,3 +120,82 @@ def test_new_entries_need_only_new_files(tmp_path):
     assert set(spec.metric_readers()) < set(readers)
     with pytest.raises(FileNotFoundError):
         spec.load_cell("no_such_cell", tmp_path)
+
+
+PROGRAM = """from mpas_tpu_torch.config import Namelist
+from mpas_tpu_torch.dynamics.model import build_model
+from mpas_tpu_torch.mesh.loader import load_mesh
+
+CALLS = []
+
+
+def build(namelist, grid, device):
+    CALLS.append(grid)
+    return build_model(Namelist(**namelist), load_mesh(str(grid)),
+                       device=device)
+"""
+
+REFERENCE = """from benchmark.reference.config import Namelist
+from benchmark.reference.dynamics.model import build_model
+from benchmark.reference.mesh.loader import load_mesh
+
+CALLS = []
+
+
+def build(namelist, grid, device, dtype):
+    CALLS.append(grid)
+    model = build_model(Namelist(**namelist), load_mesh(str(grid)), device,
+                        dtype)
+    step = model.step
+    model.step = lambda n: step(n - SHORT)
+    return model
+"""
+
+
+@pytest.mark.parametrize("case", ["sound", "reference_one_step_short",
+                                  "no_program_file", "no_reference_file"])
+def test_a_configuration_brings_its_own_modules(case, tmp_path, grid_dir):
+    """A configuration that names its own program and reference modules,
+    added as new files in a copy of the benchmark's data, runs through the
+    harness: correct where both do the work, not correct where the
+    reference leaves out a step, and refused when a named module has no
+    file."""
+    for folder in ("configs", "traffic", "workloads"):
+        shutil.copytree(spec.ROOT / folder, tmp_path / folder)
+    config = json.loads((tmp_path / "configs" / "jw_dry.json").read_text())
+    config.update(name="jw_own", program="jw_own_program",
+                  reference="jw_own_reference")
+    (tmp_path / "configs" / "jw_own.json").write_text(json.dumps(config))
+    workload = json.loads(
+        (tmp_path / "workloads" / "dry_120km.json").read_text())
+    workload["config"] = "jw_own"
+    (tmp_path / "workloads" / "own_120km.json").write_text(
+        json.dumps(workload))
+    (tmp_path / "programs").mkdir()
+    (tmp_path / "references").mkdir()
+    short = int(case == "reference_one_step_short")
+    if case != "no_program_file":
+        (tmp_path / "programs" / "jw_own_program.py").write_text(PROGRAM)
+    if case != "no_reference_file":
+        (tmp_path / "references" / "jw_own_reference.py").write_text(
+            REFERENCE.replace("SHORT", str(short)))
+    if case.startswith("no_"):
+        with pytest.raises(FileNotFoundError, match=case.split("_")[1]):
+            spec.load_cell("own_120km", tmp_path)
+        return
+
+    cell = tiny(spec.load_cell("own_120km", tmp_path))
+    assert cell.program.__file__.startswith(str(tmp_path / "programs"))
+    assert cell.reference.__file__.startswith(str(tmp_path / "references"))
+    res = harness.run_cell(cell, 2 ** 31 + 9, 0.3, False, torch.device("cpu"),
+                           time.perf_counter(), 0.0, grid_dir=grid_dir,
+                           log=lambda msg: None)
+    grid = inputs.grid_file(cell.traffic["grid_level"], grid_dir)
+    assert cell.program.CALLS == [grid]
+    assert cell.reference.CALLS == [grid]
+    assert res["attempted"] >= 1
+    assert {"u", "w", "theta_m", "rho_zz", "nonfinite"} <= set(res["checks"])
+    if short:
+        assert not res["correct"] and res["failed"] >= 1, res["checks"]
+    else:
+        assert res["correct"] and res["failed"] == 0, res["checks"]

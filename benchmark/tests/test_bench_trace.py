@@ -38,7 +38,7 @@ def test_union_and_gaps():
 def test_readers_on_a_hand_trace():
     sizes = dict(nCells=10, nEdges=30, nVertices=20, K=4, maxEdges=6,
                  maxEdges2=10, n_sub=2, split=1, n_scalars=0, itemsize=4,
-                 index_itemsize=4, dtype="float32")
+                 index_itemsize=4, dtype="float32", dt=300.0)
     run = SimpleNamespace(trace=trace(), sizes=sizes,
                           setup_stages={"init_jw": 1.5}, window_steps=4,
                           window_s=0.2,
@@ -53,12 +53,32 @@ def test_readers_on_a_hand_trace():
         100 * 2 * work.bound_seconds(nb, fl, "float32") / 25e-6)
     nb, fl = work.step(sizes)
     assert got["step_ms_p95.dry"] == pytest.approx(95.05)
+    # 4 steps of 300 s in 0.2 s: 1200 s / 86400 days in 0.2 / 3600 h
+    assert got["sim_days_per_hour.dry"] == pytest.approx(250.0)
     assert got["step_mfu"] == pytest.approx(
         100 * work.bound_seconds(nb, fl, "float32") / 0.05)
 
 
-def test_roofline_is_silent_without_its_kernel():
+@pytest.mark.parametrize("metric", ["acoustic_column_roofline_pct",
+                                    "sediment_roofline_pct"])
+def test_roofline_is_silent_without_its_kernel(metric):
     run = SimpleNamespace(trace=Trace(1, 1e-3, [("k_a", 0, 5)], []),
                           sizes={})
-    assert spec.metric_readers()["acoustic_column_roofline_pct"].read(run) \
-        is None
+    assert spec.metric_readers()[metric].read(run) is None
+
+
+def test_sediment_roofline_on_a_hand_trace():
+    """Two launches of Kernel 5 under their name as the profiler gives it,
+    at a WSM6 step's sizes."""
+    device = [("k_a", 0, 10),
+              ("void (anonymous namespace)::sediment_kernel<float>(...)",
+               10, 2010),
+              ("sediment_kernel<float>", 3000, 5000)]
+    sizes = dict(nCells=40962, K=41, nfall=53, microphysics="wsm6",
+                 itemsize=4, dtype="float32")
+    run = SimpleNamespace(trace=Trace(2, 1e-2, device, []), sizes=sizes)
+    got = spec.metric_readers()["sediment_roofline_pct"].read(run)
+    nb, fl = work.sediment(41, 40962, ("rain", "snow", "graupel"), 53, 4)
+    assert fl / 67e12 > nb / 3.35e12                # bound by operations
+    assert got == pytest.approx(100 * fl / 67e12 / 2e-3)
+    assert 2.7 < got < 2.8

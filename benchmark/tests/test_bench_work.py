@@ -1,6 +1,6 @@
-"""The frozen work counts behind `acoustic_column_roofline_pct` and
-`step_mfu`, against counts made by hand and against the arguments of a
-real call."""
+"""The frozen work counts behind `acoustic_column_roofline_pct`,
+`sediment_roofline_pct` and `step_mfu`, against counts made by hand and
+against the arguments of a real call."""
 
 import pytest
 import torch
@@ -66,6 +66,22 @@ def test_step_by_hand():
     assert flops == 64 * 2 * 12 * substeps
     moist = dict(z, n_scalars=6)
     assert work.step(moist)[0] - nbytes == 4 * 2 * 6 * 2 * 12
+
+
+def test_sediment_by_hand():
+    K, C, nfall = 2, 3, 4
+    # per column: rain nfall * (K * (7 + 7) + 2) + 4K = 4 * 30 + 8 = 128,
+    # snow 4 * (2 * 13 + 2) + 8 = 120
+    assert work.sediment(K, C, ("rain",), nfall, 4) == (
+        4 * (2 * 6 + 6 + 6 + 3), 3 * 128)
+    nbytes, flops = work.sediment(K, C, ("rain", "snow"), nfall, 8)
+    # rho, dz; q of each species read and written; an accumulation each
+    assert nbytes == 8 * (6 + 6 + 2 * 6 + 2 * 6 + 2 * 3) == 336
+    assert flops == 3 * 128 + 3 * 120 == 744
+    assert work.sediment(K, C, work.FALLING["wsm6"], nfall, 4)[1] == \
+        3 * (128 + 120 + 128)
+    assert [len(work.FALLING[m]) for m in ("kessler", "wsm6lite", "wsm6")] \
+        == [1, 2, 3]
 
 
 def test_bound_takes_the_longer_side():

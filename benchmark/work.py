@@ -91,3 +91,25 @@ def step(sizes: dict):
     nbytes = item * (elements + geometry) + idx * tables
     flops = ACOUSTIC_FLOPS_PER_POINT * K * C * substeps
     return nbytes, flops
+
+
+# floating-point operations of Kernel 5 (csrc/sediment.cu) a level and
+# substep for each fall law (its pow counted as one); a level and substep
+# adds 7 more (the flux 2, the update 5), a substep 2 (the surface sum), a
+# level 4 once (rhofac and rho dz)
+SEDIMENT_LAW_FLOPS = {"rain": 7, "snow": 6, "graupel": 7}
+# the species each microphysics scheme sediments, by fall law
+FALLING = {"kessler": ("rain",), "wsm6lite": ("rain", "snow"),
+           "wsm6": ("rain", "snow", "graupel")}
+
+
+def sediment(K: int, C: int, laws, nfall: int, itemsize: int):
+    """(bytes, flops) of one sedimentation of the species with fall laws
+    `laws` through all `nfall` substeps, on K levels of C columns. Read:
+    rho and dz [K, C] once, each species' q [K, C]; written: each species'
+    new q [K, C] and surface accumulation [C]."""
+    S = len(laws)
+    nbytes = itemsize * (2 * K * C + 2 * S * K * C + S * C)
+    flops = sum(C * (nfall * (K * (SEDIMENT_LAW_FLOPS[law] + 7) + 2) + 4 * K)
+                for law in laws)
+    return nbytes, flops
