@@ -67,6 +67,13 @@ Phases, each printing one JSON line:
      memory) and one traced (launches, kernel device time); the heating
      rates, OLR and cloud fraction; then RADIATION_STEPS steps with the
      heating applied;
+  7d. radiation_step: the moist model built with both radiation schemes on
+     every 1800 s (RADIATION_KEYS, as jw_moist_wsm6_camrad), so that
+     Model.step runs it on MPAS's alarm: RADIATION_TIMED_STEPS steps timed
+     one at a time (the steps that ring against the rest, CUDA events and
+     the host clock), then RADIATION_TRACED_STEPS traced steps holding one
+     call, whose `parts` give the rad.* spans' launches, host and device
+     ms;
   8. agreement: 2 steps on the card and on the CPU at x1.2562, float64,
      port against port: dry JW on the default numbering and (agreement_
      orient) with config_renumber_mesh and config_orient_edges; JW with
@@ -102,7 +109,9 @@ Phases, each printing one JSON line:
      reference fails there must fail here as well;
   8d. cli: `python -m mpas_tpu_torch`'s main in this process on the card: a
      full-width moist run with radiation, history and checkpoints (its own
-     ms/step, the files' sizes, launches of Kernels 1 and 2), and a restart
+     ms/step, the files' sizes, launches of Kernels 1 and 2; the radiation
+     runs inside the step on its alarm, so `ms_per_step_without_parts`, the
+     loop less history and checkpoints, holds it), and a restart
      leg at x1.2562, float64: 4 straight steps against 2 + restart + 2,
      whose final histories must be bit-equal; and the same with --shards
      SHARDS: its history within AGREE_REL of the single-device leg's, its
@@ -158,7 +167,7 @@ PROFILE_STEPS = 3
 PROFILE_TOP = 15
 # the step's top-level spans (mpas_tpu_torch/tracing.py) and the runtime
 # calls that launch device work, as the benchmark's span readers name them
-SPAN_PREFIXES = ("srk3.", "moist.")
+SPAN_PREFIXES = ("srk3.", "moist.", "rad.")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
 K1_F32_REL = 1e-4     # float32 kernel vs plain, relative to max |plain|
@@ -186,6 +195,15 @@ TAKE_MIXED_FRACTIONS = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
 RADIATION_JULIAN = 80.25   # equinox, 06 UTC: half the planet in daylight
 RADT_STEPS = 5             # the CLI's default --radt-steps
 RADIATION_STEPS = 2        # steps taken with the heating applied
+# the radiation on Model.step's own alarm (jw_moist_wsm6_camrad's keys):
+# at dt 300 s every 6th step from step 0 rings
+RADIATION_KEYS = dict(config_radt_lw_scheme="cam_lw",
+                      config_radt_sw_scheme="cam_sw",
+                      config_radtlw_interval=1800.0,
+                      config_radtsw_interval=1800.0)
+RADIATION_WARM_STEPS = 12  # two calls before anything is timed
+RADIATION_TIMED_STEPS = 36  # six calls timed one step at a time
+RADIATION_TRACED_STEPS = 6  # one call traced, from a step that rings
 CLI_STEPS = 10
 SHARDS = 4                 # the stacked back end's shards on the one card
 SHARDED_STEPS = 10
@@ -232,15 +250,15 @@ def profile_steps(model, n, torch):
 
 def span_parts(tr):
     """The traced steps `tr` (benchmark/trace.py) by the program's top-level
-    spans (tracing.span: `srk3.*`, `moist.*`), each a step: launches (the
-    runtime calls that launch a kernel, a copy or a fill from inside it),
-    host ms, and the device ms of the operations those calls enqueued, with
-    shares of the whole; `outside` holds what no span holds. The port
-    enqueues on one stream, so its device operations run in launch order
-    and the i-th launch call enqueued the i-th device operation. The trace
-    may miss a few device records (`unmatched_per_step`: launch calls less
-    device operations); each missed one moves at most one operation a span
-    boundary into the span before."""
+    spans (tracing.span: `srk3.*`, `moist.*`, `rad.*`), each a step:
+    launches (the runtime calls that launch a kernel, a copy or a fill from
+    inside it), host ms, and the device ms of the operations those calls
+    enqueued, with shares of the whole; `outside` holds what no span holds.
+    The port enqueues on one stream, so its device operations run in launch
+    order and the i-th launch call enqueued the i-th device operation. The
+    trace may miss a few device records (`unmatched_per_step`: launch calls
+    less device operations); each missed one moves at most one operation a
+    span boundary into the span before."""
     n = tr.steps
     spans = sorted((s, e, name) for name, s, e in tr.host
                    if name.startswith(SPAN_PREFIXES))
@@ -876,6 +894,67 @@ def radiation_call(model, phys, torch):
     if not (0.0 < abs(rt).max() < 200.0 and 150.0 < out["olr_mean"] < 350.0
             and 0.0 <= out["cldfra_max"] <= 1.0):
         raise RuntimeError(f"radiation: diagnostics out of range: {out}")
+    return out
+
+
+def radiation_step(nl_moist, mesh, torch):
+    """The radiation inside Model.step at full width: the moist model with
+    both schemes on every 1800 s (RADIATION_KEYS) and condensate seeded
+    (probes.seeded_condensate); RADIATION_WARM_STEPS steps, then
+    RADIATION_TIMED_STEPS steps one at a time, each timed with CUDA events
+    and on the host clock (host-bound: the host's time sets the step's),
+    split into the steps the alarm rang on and the rest; then
+    RADIATION_TRACED_STEPS traced steps from a step that rings
+    (profile_steps: `parts` holds the rad.* spans of one call)."""
+    from mpas_tpu_torch.dynamics.model import build_model, radiation_rings
+    from mpas_tpu_torch.probes import seeded_condensate
+    model = build_model(nl_moist.replace(**RADIATION_KEYS), mesh,
+                        device="cuda")
+    model.state = seeded_condensate(model.state, seed=0)
+    model.step(RADIATION_WARM_STEPS)
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(RADIATION_TIMED_STEPS):
+        ring = radiation_rings(model.step_count, model.namelist.config_dt,
+                               model.radiation_interval)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        model.step(1)
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        rows.append((ring, a.elapsed_time(b), host_ms))
+    if model.step_count % 6:
+        raise RuntimeError(f"radiation_step: step {model.step_count} does "
+                           "not ring; the traced steps would not hold one "
+                           "call")
+    calls = model.radiation_calls
+    prof = profile_steps(model, RADIATION_TRACED_STEPS, torch)
+    if model.radiation_calls != calls + 1:
+        raise RuntimeError("radiation_step: the traced steps did not hold "
+                           "exactly one radiation call")
+    median = lambda xs: statistics.median(xs) if xs else None
+    by = lambda ring, i: [r[i] for r in rows if r[0] == ring]
+    out = dict(
+        cells=model.mesh.nCells, levels=model.namelist.config_nvertlevels,
+        dtype=model.namelist.dtype, dt=model.namelist.config_dt,
+        interval_s=model.radiation_interval,
+        timed_steps=len(rows), ring_steps=len(by(True, 1)),
+        ring_step_event_ms=median(by(True, 1)),
+        ring_step_host_ms=median(by(True, 2)),
+        plain_step_event_ms=median(by(False, 1)),
+        plain_step_host_ms=median(by(False, 2)),
+        event_ms_all=[r[1] for r in rows],
+        radiation_calls=model.radiation_calls, profile=prof,
+        moisture=check_moisture(model.state, "radiation_step"))
+    out["ring_minus_plain_event_ms"] = (out["ring_step_event_ms"]
+                                        - out["plain_step_event_ms"])
+    rt = model.state.rt_diabatic_tend
+    if not (bool(rt.isfinite().all()) and float(rt.abs().max()) > 0.0):
+        raise RuntimeError("radiation_step: rt_diabatic_tend is zero or not "
+                           "finite")
     return out
 
 
@@ -1589,6 +1668,9 @@ def main():
           "steps_after": rad_steps,
           "moisture": check_moisture(model.state, "radiation")})
     del model
+    torch.cuda.empty_cache()
+    emit({"phase": "radiation_step",
+          **timed(lambda: radiation_step(nl_m, mesh, torch))})
     torch.cuda.empty_cache()
 
     # 8. card against CPU, float64, x1.2562, 2 steps

@@ -67,9 +67,12 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--checkpoint-path", default="restart.npz")
     ap.add_argument("--physics", action="store_true",
-                    help="enable the radiation/cloud physics driver")
+                    help="enable the radiation/cloud physics driver: both "
+                         "radiation schemes on (config_radt_lw_scheme "
+                         "cam_lw, config_radt_sw_scheme cam_sw)")
     ap.add_argument("--radt-steps", type=int, default=5,
-                    help="dynamics steps between radiation calls (>= 1)")
+                    help="dynamics steps between radiation calls (>= 1): "
+                         "both radiation intervals at this many steps")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     if args.physics and args.radt_steps < 1:
@@ -98,6 +101,18 @@ def main(argv=None):
     finally:
         if distributed:
             dist.destroy_process_group()
+
+
+def radiation_namelist(nl, radt_steps: int):
+    """`--physics --radt-steps n` on one device: both radiation schemes on,
+    both intervals n * dt, on which the step's alarm rings every n steps
+    from step 0 (`radiation_rings` takes n * dt multiplied in floats as n
+    steps)."""
+    interval = radt_steps * nl.config_dt
+    return nl.replace(config_radt_lw_scheme="cam_lw",
+                      config_radt_sw_scheme="cam_sw",
+                      config_radtlw_interval=interval,
+                      config_radtsw_interval=interval)
 
 
 def _run(args, device, sharded):
@@ -144,6 +159,10 @@ def _run(args, device, sharded):
     if args.dt is None and args.config is None:
         dx_km = float(mesh.dcEdge.min()) / 1e3
         nl = nl.replace(config_dt=min(720.0, 4.0 * dx_km))
+    if args.physics and not sharded:
+        # the step's own radiation alarm (the sharded runner calls
+        # apply_physics in the loop below)
+        nl = radiation_namelist(nl, args.radt_steps)
     t0 = time.time()
     log(f"building model (levels={nl.config_nvertlevels}, dt={nl.config_dt:.0f}s, "
         f"device={device}) ...")
@@ -164,11 +183,10 @@ def _run(args, device, sharded):
         log(f"resumed from {args.restart} at step {runner.step_count}")
 
     phys = None
-    if args.physics:
+    if args.physics and sharded:
         from .physics.driver import physics_init
         phys = physics_init()
-        if sharded:
-            runner.enable_physics(phys)
+        runner.enable_physics(phys)
 
     hist = None
     if args.output and args.history_every:
@@ -183,7 +201,9 @@ def _run(args, device, sharded):
 
     # wall time of the loop's parts other than the steps; the device is
     # synchronized before each, so the steps' queued work counts as theirs
-    spent = {"radiation": 0.0, "history": 0.0, "checkpoints": 0.0}
+    spent = {"history": 0.0, "checkpoints": 0.0}
+    if phys is not None:
+        spent = {"radiation": 0.0, **spent}
 
     def timed(part, fn):
         if device.type == "cuda":
@@ -198,18 +218,18 @@ def _run(args, device, sharded):
     t0 = time.time()
     for step in range(n_steps):
         if phys is not None and step % args.radt_steps == 0:
-            if sharded:
-                timed("radiation", lambda: runner.apply_physics(phys))
-                log("  physics: radiation interval applied (sharded)")
-            else:
-                pd = timed("radiation", lambda: model.apply_physics(phys))
-                log(f"  physics: cldfra max={pd['cldfra'].max():.2f} "
-                    f"OLR mean={pd['olr'].mean():.0f} W/m2 "
-                    f"qr range=[{(pd['qrl'].min()*86400):.1f},"
-                    f"{(pd['qrs'].max()*86400):.1f}] K/day")
+            timed("radiation", lambda: runner.apply_physics(phys))
+            log("  physics: radiation interval applied (sharded)")
         runner.step(1)
         # summarize waits for the device: fetch only every --log-every steps
         if (step + 1) % log_every == 0 or step + 1 == n_steps:
+            pd = None if sharded else model.radiation_diags
+            if pd is not None:
+                log(f"  physics (last radiation call, {model.radiation_calls}"
+                    f" so far): cldfra max={float(pd['cldfra'].max()):.2f} "
+                    f"OLR mean={float(pd['olr'].mean()):.0f} W/m2 "
+                    f"qr range=[{float(pd['qrl'].min()) * 86400:.1f},"
+                    f"{float(pd['qrs'].max()) * 86400:.1f}] K/day")
             s = sharded_summarize(runner) if sharded else model.summarize()
             log(f"step {runner.step_count}: "
                 f"w=[{s['w_min']:+.3e},{s['w_max']:+.3e}] "

@@ -75,6 +75,15 @@ class Namelist:
     config_roughness: float = 0.01            # z0 [m]
     config_kessler_nfall: int = 0             # 0 = auto from dt & min layer depth
 
+    # --- radiation (Registry.xml's names; the port's own keys) ---
+    # "cam_lw" / "cam_sw" run physics/driver.py's CAM-slot chain inside
+    # Model.step on MPAS's alarm; the driver solves both in one call, so
+    # both are on or both "off", at one interval
+    config_radt_lw_scheme: str = "off"        # "off" | "cam_lw"
+    config_radt_sw_scheme: str = "off"        # "off" | "cam_sw"
+    config_radtlw_interval: float = 1800.0    # seconds ('00:30:00')
+    config_radtsw_interval: float = 1800.0    # seconds ('00:30:00')
+
     # --- diagnostics/printing (constants.rg:67-69) ---
     config_print_detailed_minmax_vel: bool = False
     config_print_global_minmax_vel: bool = False

@@ -12,6 +12,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, field
+from fractions import Fraction
 from typing import Callable, Optional
 
 import numpy as np
@@ -30,7 +31,9 @@ from ..mesh.orient import orient_edges
 from ..mesh.renumber import renumber_mesh
 from ..ops import diagnostics as diag_ops
 from ..physics import kessler, wsm6
-from ..physics.driver import make_radiation_fn, time_params
+from ..physics.driver import (host_diagnostics, make_radiation_fn,
+                              physics_init)
+from ..tracing import span
 from . import srk3
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -39,6 +42,57 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _INIT_CASES = {21: ("init_mountain_wave", mw_init.init_mountain_wave),
                22: ("init_squall", sq_init.init_squall)}
 _INIT_DEFAULT = ("init_jw", jw_init.init_jw)
+# the radiation schemes the step runs (physics/driver.py's CAM-slot chain),
+# by namelist key
+RADIATION_SCHEMES = {"config_radt_lw_scheme": "cam_lw",
+                     "config_radt_sw_scheme": "cam_sw"}
+
+
+def radiation_interval(nl: Namelist) -> Optional[float]:
+    """The radiation interval [s] of the namelist, None with radiation off.
+    The driver solves SW and LW in one call, so the two schemes are on or
+    off together, at one interval; anything else raises ValueError naming
+    its key."""
+    on = {}
+    for key, scheme in RADIATION_SCHEMES.items():
+        value = getattr(nl, key)
+        if value not in ("off", scheme):
+            raise ValueError(f"{key} = {value!r}: the port runs 'off' or "
+                             f"{scheme!r}")
+        on[key] = value != "off"
+    if not any(on.values()):
+        return None
+    for key, value in on.items():
+        if not value:
+            raise ValueError(f"{key} = 'off' with the other scheme on: the "
+                             f"driver solves SW and LW in one call")
+    lw, sw = nl.config_radtlw_interval, nl.config_radtsw_interval
+    if lw != sw:
+        raise ValueError(f"config_radtsw_interval = {sw} differs from "
+                         f"config_radtlw_interval = {lw}: the driver solves "
+                         f"SW and LW in one call")
+    if not lw > 0:
+        raise ValueError(f"config_radtlw_interval = {lw}: an interval is "
+                         f"positive")
+    return float(lw)
+
+
+def radiation_rings(step: int, dt: float, interval: float) -> bool:
+    """MPAS's radiation alarm at the start of step `step`: it rings at time
+    0 and then on the first step whose start has reached the next ring
+    time, one interval after the last; so step n rings when n is 0 or when
+    a multiple of `interval` lies in (t - dt, t], t = n dt. Exact in
+    rationals, and a function of the step count alone, so a restart
+    resumes on the same alarm. An interval within float rounding of a
+    whole number of steps (n * dt multiplied in floats, as the CLI's
+    `--radt-steps` does) is that number of steps."""
+    if step == 0:
+        return True
+    steps = Fraction(interval) / Fraction(dt)         # the interval in steps
+    whole = round(steps)
+    if whole >= 1 and abs(steps - whole) <= whole * Fraction(1, 2 ** 48):
+        steps = Fraction(whole)
+    return step // steps != (step - 1) // steps
 
 
 @dataclass
@@ -54,8 +108,14 @@ class Model:
     step_count: int = 0
     init_fields: dict = field(default_factory=dict)  # host-side init extras
     setup_seconds: dict = field(default_factory=dict)  # build_model by stage
-    # the radiation closure, built at the first apply_physics
+    # the radiation over its device tables: built by build_model when the
+    # namelist turns radiation on, else at the first apply_physics
     _radiation_fn: Optional[Callable] = field(default=None, repr=False)
+    # the step's radiation interval [s] (config_radtlw_interval), None off
+    radiation_interval: Optional[float] = None
+    radiation_calls: int = 0         # radiation calls, in the step or not
+    # the last call's diagnostics, on the device (nothing copied)
+    radiation_diags: Optional[dict] = field(default=None, repr=False)
 
     @property
     def dtype(self):
@@ -66,46 +126,66 @@ class Model:
         return self.state.theta_m.device
 
     def step(self, n: int = 1):
+        """n steps; with radiation on (`radiation_interval`), each step on
+        which MPAS's radiation alarm rings first runs the radiation into
+        rt_diabatic_tend, which the step consumes and which holds until
+        the next ring."""
         for _ in range(n):
+            if self.radiation_interval is not None and radiation_rings(
+                    self.step_count, self.namelist.config_dt,
+                    self.radiation_interval):
+                self.radiate()
             self.state = self.step_fn(self.state)
             self.step_count += 1
         return self.state
 
-    def apply_physics(self, phys, julian: float | None = None):
+    def julian(self) -> float:
+        """Model time in days from MPAS's idealized start
+        0000-01-01_00:00:00."""
+        return self.step_count * self.namelist.config_dt / 86400.0
+
+    def radiate(self, julian: float | None = None):
         """Run the radiation driver on the current state and couple the
         radiative heating into the dycore via rt_diabatic_tend (the
         physics_driver -> atm_do_timestep coupling, atm_core.rg:64-68),
-        which the step consumes.
+        which the step consumes; returns (rthraten [C, K], diagnostics), on
+        the device. `julian` defaults to the model time in days; the time
+        factors come from the radiation's `time_factors(julian)`, so the
+        call copies nothing from the host and never waits for the device.
 
-        Called once per radiation interval, like MPAS's hourly radiation
-        cadence against 12-minute dynamics steps. `julian` defaults to the
-        model time in days. The columnar radiation keeps the CAM [cols,
-        pver] convention: the level-major fields go in as transposed views,
-        which the solver reads level-major again without a copy. Returns the
-        diagnostics as host numpy arrays ([C, K] or [C])."""
-        if julian is None:
-            julian = self.step_count * self.namelist.config_dt / 86400.0
-        if self._radiation_fn is None:
-            self._radiation_fn = make_radiation_fn(phys, self.dtype,
-                                                   self.device)
-        out = diag_ops.output_diagnostics(self.state, self.static)
-        pressure = out["pressure"]                       # [K, C]
-        vg = self.vgrid
-        sp = (vg.cf1 * pressure[0] + vg.cf2 * pressure[1]
-              + vg.cf3 * pressure[2])
+        The columnar radiation keeps the CAM [cols, pver] convention: the
+        level-major fields go in as transposed views, which the solver
+        reads level-major again without a copy."""
+        tp = self._radiation_fn.time_factors(
+            self.julian() if julian is None else julian)
         s = self.state
-        qv = s.scalars[0].T if s.scalars is not None else None
-        qc = (s.scalars[1].T if s.scalars is not None
-              and s.scalars.shape[0] > 1 else None)
-        tp = time_params(phys, julian, self.dtype, self.device)
+        with span("rad.columns"):
+            pressure = self.static.pressure_base + s.pressure_p   # [K, C]
+            vg = self.vgrid
+            sp = (vg.cf1 * pressure[0] + vg.cf2 * pressure[1]
+                  + vg.cf3 * pressure[2])
+            qv = s.scalars[0].T if s.scalars is not None else None
+            qc = (s.scalars[1].T if s.scalars is not None
+                  and s.scalars.shape[0] > 1 else None)
         rthraten, diags = self._radiation_fn(
             self.mesh_arrays.latCell, self.mesh_arrays.lonCell,
             s.theta_m.T, s.exner.T, pressure.T, sp, qv, qc, tp)
-        self.state = s.replace(
-            rt_diabatic_tend=rthraten.T.contiguous().to(self.dtype))
-        pd = {k: v.cpu().numpy() for k, v in diags.items()}
-        pd["rthraten"] = rthraten.cpu().numpy()
-        return pd
+        with span("rad.couple"):
+            self.state = s.replace(
+                rt_diabatic_tend=rthraten.T.contiguous().to(self.dtype))
+        self.radiation_calls += 1
+        self.radiation_diags = diags
+        return rthraten, diags
+
+    def apply_physics(self, phys, julian: float | None = None):
+        """`radiate` for a caller's own loop: the radiation built from
+        `phys` unless the model has one, then the diagnostics copied to the
+        host as numpy arrays ([C, K] or [C]), which waits for the device.
+        `julian` defaults to the model time in days."""
+        if self._radiation_fn is None:
+            self._radiation_fn = make_radiation_fn(phys, self.dtype,
+                                                   self.device)
+        return host_diagnostics(*self.radiate(julian))
 
     def summarize(self):
         return {k: float(v) for k, v in
@@ -133,8 +213,14 @@ def build_model(namelist: Optional[Namelist] = None,
     `config_renumber_mesh` renumbers the mesh (RCM, mesh/renumber.py) and
     then `config_orient_edges` aligns its edges to their owner cells
     (mesh/orient.py) unless the mesh given is aligned already; the model's
-    `mesh` is the mesh it runs on."""
+    `mesh` is the mesh it runs on. With `config_radt_lw_scheme` "cam_lw"
+    and `config_radt_sw_scheme` "cam_sw" the radiation's host tables
+    (`physics_init`) and device tables are built once here
+    (`setup_seconds["physics_init"]`) and `Model.step` runs it on MPAS's
+    alarm every `config_radtlw_interval` seconds; a mismatch of the four
+    keys raises ValueError naming the key."""
     nl = namelist or Namelist()
+    interval = radiation_interval(nl)
     dev = resolve_device(device)
     dtype = dtype or _DTYPES[nl.dtype]
 
@@ -230,6 +316,11 @@ def build_model(namelist: Optional[Namelist] = None,
 
     step_fn = srk3.make_step_fn(static, marr, vert, nl)
     lap("state")
-    return Model(namelist=nl, mesh=mesh, vgrid=vg, mesh_arrays=marr, vert=vert,
-                 static=static, state=state, step_fn=step_fn,
-                 init_fields=init_np, setup_seconds=seconds)
+    model = Model(namelist=nl, mesh=mesh, vgrid=vg, mesh_arrays=marr,
+                  vert=vert, static=static, state=state, step_fn=step_fn,
+                  init_fields=init_np, setup_seconds=seconds,
+                  radiation_interval=interval)
+    if interval is not None:
+        model._radiation_fn = make_radiation_fn(physics_init(), dtype, dev)
+        lap("physics_init")
+    return model

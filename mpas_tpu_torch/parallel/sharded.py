@@ -144,13 +144,11 @@ class ShardedModel:
         """Sharded physics coupling: the columnar radiation runs on the local
         columns, halo columns included, so no exchange is needed, and writes
         rt_diabatic_tend."""
-        from ..physics.driver import time_params
         if julian is None:
             julian = self.step_count * self.namelist.config_dt / 86400.0
         if self.radiation_fn is None:
             raise RuntimeError("call enable_physics(phys) first")
-        tp = time_params(phys, julian, self.dtype, self.device)
-        rthraten = self.radiation_fn(self.state, tp)
+        rthraten = self.radiation_fn(self.state, julian)
         self.state = self.state.replace(
             rt_diabatic_tend=rthraten.contiguous().to(self.dtype))
 
@@ -266,7 +264,14 @@ def shard_model(model, n_shards: int,
     """Build a ShardedModel from a (single-device) Model: the stacked back
     end on the model's device, or the distributed one when torch.distributed
     is initialized with world size n_shards (every rank builds the same
-    partition from its own copy of the model and keeps its block)."""
+    partition from its own copy of the model and keeps its block). The
+    sharded step has no radiation alarm: a model whose namelist turns the
+    radiation on is refused (call enable_physics / apply_physics)."""
+    if getattr(model, "radiation_interval", None) is not None:
+        raise ValueError("config_radt_lw_scheme / config_radt_sw_scheme: the "
+                         "sharded step runs no radiation on its alarm; build "
+                         "the model with both 'off' and call enable_physics "
+                         "and apply_physics")
     import torch.distributed as dist
     distributed = (dist.is_available() and dist.is_initialized()
                    and dist.get_world_size() == n_shards)
@@ -361,12 +366,15 @@ def make_sharded_radiation(sm: ShardedModel, phys):
     """Sharded radiation: the columnar radctl chain
     (physics/driver.radiation_columns) over the local columns. Halo columns
     are computed redundantly, like the dycore stencils, so no exchange is
-    needed. Returns radiation(state, tp) -> rthraten [K, local columns]."""
+    needed. Returns radiation(state, julian) -> rthraten [K, local
+    columns], with the time factors of the single-device step
+    (`Radiation.time_factors`)."""
     from ..physics.driver import make_radiation_fn
     fn = make_radiation_fn(phys, sm.dtype, sm.device)
     m, sta, vert = sm.mesh_arrays, sm.static, sm.vert
 
-    def radiation(state, tp):
+    def radiation(state, julian):
+        tp = fn.time_factors(julian)
         pressure = sta.pressure_base + state.pressure_p         # [K, L]
         sp = (vert.cf1 * pressure[0] + vert.cf2 * pressure[1]
               + vert.cf3 * pressure[2])

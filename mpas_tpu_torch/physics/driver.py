@@ -10,12 +10,15 @@ the multi-band solver of physics/radiation.py, a built-in ozone climatology
 through oznint -> radozn -> radinp, and a background sulfate aerosol through
 vert_interpolate.
 
-The host half (the climatologies, `PhysicsState`, `physics_init`,
-`time_params`) is numpy, as in mpas_tpu. The per-interval path is torch on
-the model's device: `make_radiation_fn` returns a closure over device
-tables built once; the time-dependent scalars (ozone month weights, solar
-declination and eccentricity, hour angle) come from `time_params` each
-radiation interval.
+The host half (the climatologies, `PhysicsState`, `physics_init`) is
+numpy, as in mpas_tpu. The per-interval path is torch on the model's
+device: `make_radiation_fn` returns a `Radiation` over device tables built
+once; the time-dependent factors (ozone month weights, solar declination
+and eccentricity, hour angle: mpas_tpu's `time_params`) come each radiation
+interval from `time_factors`, as Python floats and an ozone profile
+weighted on the device, which copies nothing from the host. `Model.step`
+(on MPAS's radiation alarm), `Model.apply_physics`, the sharded runner and
+`physics_driver` all take them so.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from .. import constants
 from . import radiation as rad
 from . import radiation_support as rs
 from . import tables as tbl
+from ..tracing import span
 
 
 # ---------------------------------------------------------------------------
@@ -89,19 +93,6 @@ def physics_init(n_cells: int | None = None) -> PhysicsState:
                         aerosolc=aerosolc)
 
 
-def time_params(phys: PhysicsState, julian: float, dtype=torch.float32,
-                device="cuda"):
-    """Host-side per-interval time factors (the physics_timetracker slot):
-    month-interpolated ozone, solar declination + eccentricity-scaled solar
-    constant, hour angle; computed in numpy, returned as tensors of `dtype`
-    on `device`."""
-    ozmix_now = rs.oznint(julian, phys.ozmixm)
-    declin, solcon = rs.radconst(max(julian % constants.daysperyear, 1e-3))
-    as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)
-    return dict(ozmix=as_t(ozmix_now), declin=as_t(declin),
-                solcon=as_t(solcon), hour=as_t(2.0 * np.pi * (julian % 1.0)))
-
-
 # ---------------------------------------------------------------------------
 # cloudiness (driver_cloudiness)
 # ---------------------------------------------------------------------------
@@ -145,17 +136,55 @@ def _column_pressures(pressure, pressure_sfc):
     return pressure, pint.T
 
 
-def cosine_zenith(lat, lon, declin, hour):
+def cosine_zenith(lat, lon, declin: float, hour: float):
     """Cosine solar zenith angle; `hour` = 2*pi*(julian % 1); declin and
-    hour are tensors (0-d)."""
+    hour are Python floats (time_factors)."""
     hour_angle = hour + lon - math.pi
-    return (torch.sin(lat) * torch.sin(declin)
-            + torch.cos(lat) * torch.cos(declin) * torch.cos(hour_angle))
+    return (torch.sin(lat) * math.sin(declin)
+            + torch.cos(lat) * math.cos(declin) * torch.cos(hour_angle))
 
 
 # ---------------------------------------------------------------------------
 # radctl: the full chain
 # ---------------------------------------------------------------------------
+
+def _column_optics(phys_j, t, pmid, pint, cwp, tp):
+    """radctl's column inputs of the solves: ozone (time interpolation on
+    the data levels, then radozn and radinp), the aerosol path
+    (vert_interpolate, ra_cam_radctl_support.rg:353-532, from the
+    background climatology to model levels, summed over species) and the
+    cloud optics."""
+    C = t.shape[0]
+    ozmix = tp["ozmix"][None, :].expand(C, -1)
+    o3vmr = rs.radozn(pmid, phys_j["pin"], ozmix)
+    _, _, o3mmr = rs.radinp(pmid, pint, o3vmr)
+    aer = rs.vert_interpolate_j(pint[:, 0], phys_j["aerosolc"],
+                                phys_j["m_hybi"], pint)
+    rel, rei = rad.cldefr(t)
+    fice = rad.ice_fraction(t)
+    return dict(o3vmr=o3vmr, o3mmr=o3mmr, aer_mmr=aer.sum(dim=-1), rel=rel,
+                rei=rei, fice=fice, cld_emis=rad.cldems(cwp, rei, fice))
+
+
+def _solves(phys_j, col, esat, qsat, t, qv, pmid, pint, cldfra, cwp, coszrs,
+            tp, albedo, emiss, tsfc):
+    """The multi-band SW and LW solves on the column inputs, and radctl's
+    outputs."""
+    terms = phys_j["terms"]
+    with span("rad.sw"):
+        sw = rad.sw_fluxes(coszrs, tp["solcon"], pmid, pint, qv, col["o3mmr"],
+                           cldfra, cwp, col["rel"], col["rei"], col["fice"],
+                           aer_mmr=col["aer_mmr"], albedo=albedo, terms=terms)
+    with span("rad.lw"):
+        lw = rad.lw_fluxes(t, qv, col["o3mmr"], pmid, pint, col["cld_emis"],
+                           cldfra, t[:, 0] if tsfc is None else tsfc,
+                           emiss=emiss, terms=terms)
+    return dict(qrs=sw["qrs"], qrl=lw["qrl"], o3vmr=col["o3vmr"], qsat=qsat,
+                esat=esat, aer_mmr=col["aer_mmr"], swdnb=sw["swdnb"],
+                fsns=sw["fsns"], fsnt=sw["fsnt"], swup_toa=sw["swup_toa"],
+                solin=sw["solin"], lwdnb=lw["lwdnb"], olr=lw["olr"],
+                flns=lw["flns"], solcon=tp["solcon"], declin=tp["declin"])
+
 
 def radctl(phys_j: dict, t, qv, pmid, pint, cldfra, cwp, coszrs, tp,
            albedo=0.2, emiss=0.95, tsfc=None, qc=None):
@@ -163,80 +192,90 @@ def radctl(phys_j: dict, t, qv, pmid, pint, cldfra, cwp, coszrs, tp,
     interpolation, cgs conversion, saturation humidity, aerosol vertical
     interpolation, then the multi-band SW/LW solves.
 
-    `phys_j`: device-side tables from `_device_tables`.  `tp`: time_params.
-    Returns dict with heating rates [K/s] (qrs, qrl), surface fluxes and
-    TOA diagnostics."""
-    C = t.shape[0]
-    ozmix = tp["ozmix"][None, :].expand(C, -1)
-    o3vmr = rs.radozn(pmid, phys_j["pin"], ozmix)
-    _, _, o3mmr = rs.radinp(pmid, pint, o3vmr)
+    `phys_j`: device-side tables from `_device_tables`.  `tp`:
+    time_factors. Returns dict with heating rates [K/s] (qrs, qrl),
+    surface fluxes and TOA diagnostics."""
     esat, qsat = tbl.aqsat_j(t, pmid, phys_j)
-
-    # aerosol path: vert_interpolate (ra_cam_radctl_support.rg:353-532) from
-    # the background climatology to model levels, summed over species
-    aer = rs.vert_interpolate_j(pint[:, 0], phys_j["aerosolc"],
-                                phys_j["m_hybi"], pint)
-    aer_mmr = aer.sum(dim=-1)
-
-    tsfc = tsfc if tsfc is not None else t[:, 0]
-    rel, rei = rad.cldefr(t)
-    fice = rad.ice_fraction(t)
-    cld_emis = rad.cldems(cwp, rei, fice)
-
-    sw = rad.sw_fluxes(coszrs, tp["solcon"], pmid, pint, qv, o3mmr, cldfra,
-                       cwp, rel, rei, fice, aer_mmr=aer_mmr, albedo=albedo)
-    lw = rad.lw_fluxes(t, qv, o3mmr, pmid, pint, cld_emis, cldfra, tsfc,
-                       emiss=emiss)
-    return dict(qrs=sw["qrs"], qrl=lw["qrl"], o3vmr=o3vmr, qsat=qsat,
-                esat=esat, aer_mmr=aer_mmr, swdnb=sw["swdnb"],
-                fsns=sw["fsns"], fsnt=sw["fsnt"], swup_toa=sw["swup_toa"],
-                solin=sw["solin"], lwdnb=lw["lwdnb"], olr=lw["olr"],
-                flns=lw["flns"], solcon=tp["solcon"], declin=tp["declin"])
+    col = _column_optics(phys_j, t, pmid, pint, cwp, tp)
+    return _solves(phys_j, col, esat, qsat, t, qv, pmid, pint, cldfra, cwp,
+                   coszrs, tp, albedo, emiss, tsfc)
 
 
 def _device_tables(phys: PhysicsState, dtype, device):
+    """Every table of the per-interval path on the device, built once: the
+    saturation table, the ozone data levels and monthly profiles, the
+    aerosol climatology and the solvers' per-term coefficients."""
     tb = phys.tables
     as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     return dict(estbl=as_t(tb.estbl), tmin=tb.tmin, tmax=tb.tmax,
-                pin=as_t(phys.pin), m_hybi=as_t(phys.m_hybi),
-                aerosolc=as_t(phys.aerosolc))
+                pin=as_t(phys.pin), ozmixm=as_t(phys.ozmixm),
+                m_hybi=as_t(phys.m_hybi), aerosolc=as_t(phys.aerosolc),
+                terms=rad.term_tables(dtype, device))
+
+
+def time_factors(ozmixm, julian: float) -> dict:
+    """mpas_tpu's time_params with no copy from the host: the ozone profile
+    weighted on the device from the monthly table `ozmixm` [nMonths,
+    levsiz] (a device table) by oznint's weights, and the declination,
+    solar constant and hour angle as Python floats."""
+    nm, np1, fact1, fact2 = rs.oznint_weights(julian)
+    declin, solcon = rs.radconst(max(julian % constants.daysperyear, 1e-3))
+    return dict(ozmix=ozmixm[nm] * fact1 + ozmixm[np1] * fact2,
+                declin=declin, solcon=solcon,
+                hour=2.0 * math.pi * (julian % 1.0))
 
 
 def radiation_columns(phys_j, lat, lon, theta_m, exner, pressure,
                       surface_pressure, qv, qc, tp):
-    """Pure columnar radiation update on [C, K] fields.
+    """Pure columnar radiation update on [C, K] fields, in the spans
+    `rad.columns` (pressures, saturation, cloudiness, ozone, aerosol and
+    cloud optics), `rad.sw`, `rad.lw` and `rad.couple` (the heating).
 
     Returns (rthraten [C, K], diags dict)."""
-    qv = torch.zeros_like(theta_m) if qv is None else qv
-    t = theta_m * exner / (1.0 + constants.rvord * qv)
-    pmid, pint = _column_pressures(pressure, surface_pressure)
-    _, qsat = tbl.aqsat_j(t, pmid, phys_j)
-    cldfra = driver_cloudiness(qv, qsat, qc=qc)
-    g = constants.gravity
-    dp = (pint[:, :-1] - pint[:, 1:]).abs()
-    if qc is not None:
-        # grid-mean condensate -> in-cloud water path [g/m^2]
-        cwp = qc * dp / g * 1e3 / torch.clamp(cldfra, min=0.05)
-    else:
-        # no prognostic condensate: climatological in-cloud CWP
-        cwp = torch.where(cldfra > 0.0, 60.0, torch.zeros_like(cldfra))
-    coszrs = cosine_zenith(lat, lon, tp["declin"], tp["hour"])
-    out = radctl(phys_j, t, qv, pmid, pint, cldfra, cwp, coszrs, tp)
-    rthraten = (out["qrs"] + out["qrl"]) / exner
+    with span("rad.columns"):
+        qv = torch.zeros_like(theta_m) if qv is None else qv
+        t = theta_m * exner / (1.0 + constants.rvord * qv)
+        pmid, pint = _column_pressures(pressure, surface_pressure)
+        esat, qsat = tbl.aqsat_j(t, pmid, phys_j)
+        cldfra = driver_cloudiness(qv, qsat, qc=qc)
+        g = constants.gravity
+        dp = (pint[:, :-1] - pint[:, 1:]).abs()
+        if qc is not None:
+            # grid-mean condensate -> in-cloud water path [g/m^2]
+            cwp = qc * dp / g * 1e3 / torch.clamp(cldfra, min=0.05)
+        else:
+            # no prognostic condensate: climatological in-cloud CWP
+            cwp = torch.where(cldfra > 0.0, 60.0, torch.zeros_like(cldfra))
+        coszrs = cosine_zenith(lat, lon, tp["declin"], tp["hour"])
+        col = _column_optics(phys_j, t, pmid, pint, cwp, tp)
+    out = _solves(phys_j, col, esat, qsat, t, qv, pmid, pint, cldfra, cwp,
+                  coszrs, tp, 0.2, 0.95, None)
+    with span("rad.couple"):
+        rthraten = (out["qrs"] + out["qrl"]) / exner
     out["cldfra"] = cldfra
     return rthraten, out
 
 
+class Radiation:
+    """`radiation(lat, lon, theta_m, exner, pressure, sp, qv, qc, tp)` ->
+    (rthraten, diags), over the device tables built once;
+    `time_factors(julian)` gives a call its `tp` with no copy from the
+    host."""
+
+    def __init__(self, phys: PhysicsState, dtype, device):
+        self.tables = _device_tables(phys, dtype, device)
+
+    def __call__(self, lat, lon, theta_m, exner, pressure, sp, qv, qc, tp):
+        return radiation_columns(self.tables, lat, lon, theta_m, exner,
+                                 pressure, sp, qv, qc, tp)
+
+    def time_factors(self, julian: float) -> dict:
+        return time_factors(self.tables["ozmixm"], julian)
+
+
 def make_radiation_fn(phys: PhysicsState, dtype=torch.float32, device="cuda"):
-    """Returns radiation(lat, lon, theta_m, exner, pressure, sp, qv, qc, tp)
-    -> (rthraten, diags), closed over the device tables (built once)."""
-    phys_j = _device_tables(phys, dtype, device)
-
-    def radiation(lat, lon, theta_m, exner, pressure, sp, qv, qc, tp):
-        return radiation_columns(phys_j, lat, lon, theta_m, exner, pressure,
-                                 sp, qv, qc, tp)
-
-    return radiation
+    """The radiation over the device tables of `phys` (a `Radiation`)."""
+    return Radiation(phys, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +294,7 @@ def physics_driver(phys: PhysicsState, state_np: dict, mesh, julian: float,
     dtype = (torch.float64 if state_np["theta_m"].dtype == np.float64
              else torch.float32)
     phys_j = _device_tables(phys, dtype, device)
-    tp = time_params(phys, julian, dtype, device)
+    tp = time_factors(phys_j["ozmixm"], julian)
     as_t = lambda a: None if a is None else torch.as_tensor(
         np.asarray(a), dtype=dtype, device=device)
     rthraten, out = radiation_columns(
@@ -263,6 +302,15 @@ def physics_driver(phys: PhysicsState, state_np: dict, mesh, julian: float,
         as_t(state_np["theta_m"]), as_t(state_np["exner"]),
         as_t(state_np["pressure"]), as_t(state_np["surface_pressure"]),
         as_t(state_np.get("qv")), as_t(state_np.get("qc")), tp)
-    res = {k: v.cpu().numpy() for k, v in out.items()}
-    res["rthraten"] = rthraten.cpu().numpy()
-    return res
+    return host_diagnostics(rthraten, out)
+
+
+def host_diagnostics(rthraten, diags: dict) -> dict:
+    """A call's heating and diagnostics as host numpy arrays in the call's
+    precision, the time factors' Python floats as 0-d arrays; the copies
+    wait for the device."""
+    np_dtype = torch.empty((), dtype=rthraten.dtype).numpy().dtype
+    out = {k: v.cpu().numpy() if torch.is_tensor(v)
+           else np.asarray(v, np_dtype) for k, v in diags.items()}
+    out["rthraten"] = rthraten.cpu().numpy()
+    return out

@@ -67,12 +67,24 @@ def _lm(x):
     return x.transpose(-1, -2).contiguous()
 
 
-def _column(values, like):
-    """A [n, 1, 1] tensor of per-term coefficients in `like`'s dtype and
-    device (each value rounded to the dtype as a Python scalar operand
-    would be)."""
-    return torch.tensor(values, dtype=like.dtype,
-                        device=like.device).view(-1, 1, 1)
+def term_tables(dtype, device) -> dict:
+    """The per-term coefficients of the SW and LW solves, each a [n, 1, 1]
+    tensor of `dtype` on `device` (each value rounded to the dtype as a
+    Python scalar operand would be). Building them copies from the host,
+    so they are built once (driver._device_tables) and every solve takes
+    them as `terms`."""
+    def col(values):
+        return torch.tensor(values, dtype=dtype, device=device).view(-1, 1, 1)
+
+    omega_c = (OMEGA_C_VIS,) + (OMEGA_C_NIR,) * len(SW_H2O_W)
+    return dict(
+        sw_h2o_k=col(SW_H2O_K), omega_c=col(omega_c),
+        g_c=col([0.85 * w for w in omega_c]),
+        w_region=col([1.0 - W_NIR] + [W_NIR * w_i for w_i in SW_H2O_W]),
+        lw_h2o_k=col([DIFF * k for k in LW_H2O_K]),
+        lw_co2_k=col([DIFF * LW_CO2_K * r for _, r in LW_CO2_SPLIT]),
+        lw_w=col(list(LW_H2O_W) + [LW_CO2_W * f for f, _ in LW_CO2_SPLIT]
+                 + [LW_O3_W]))
 
 
 # ---------------------------------------------------------------------------
@@ -208,10 +220,11 @@ def _sw_adding(tau, omega, g, inc, albedo):
 
 
 def sw_fluxes(mu0, solcon, pmid, pint, q, o3mmr, cldfra, cwp, rel, rei, fice,
-              aer_mmr=None, albedo=0.2):
+              aer_mmr=None, albedo=0.2, *, terms):
     """Shortwave heating + surface/TOA fluxes.
 
-    All fields [C, K] (k=0 lowest), pint [C, K+1], mu0 [C].
+    All fields [C, K] (k=0 lowest), pint [C, K+1], mu0 [C]; solcon a
+    tensor or a Python float; `terms` from term_tables.
     Returns dict(qrs [K/s] [C, K], swdnb, swups, fsnt, fsntc...)."""
     g_grav, cp = constants.gravity, constants.cp
     mu = torch.clamp(mu0, min=0.0)
@@ -257,18 +270,16 @@ def sw_fluxes(mu0, solcon, pmid, pint, q, o3mmr, cldfra, cwp, rel, rei, fice,
     y_slant = y_layer / mu_safe                           # direct-beam slant
     nir = len(SW_H2O_W)
     tau_gas = torch.cat([torch.zeros_like(pmid)[None],
-                         _column(SW_H2O_K, pmid) * y_slant])
+                         terms["sw_h2o_k"] * y_slant])
     tau_r = torch.cat([tau_ray_v[None],
                        torch.zeros_like(pmid).expand(nir, -1, -1)])
-    omega_c = (OMEGA_C_VIS,) + (OMEGA_C_NIR,) * nir
     tau = tau_gas + tau_r + tau_cld + tau_aer + 1e-12
-    scat = tau_r + _column(omega_c, pmid) * tau_cld + AER_OMEGA * tau_aer
+    scat = tau_r + terms["omega_c"] * tau_cld + AER_OMEGA * tau_aer
     omega = scat / tau
-    gsc = (_column([0.85 * w for w in omega_c], pmid) * tau_cld
+    gsc = (terms["g_c"] * tau_cld
            + AER_G * AER_OMEGA * tau_aer) / torch.clamp(scat, min=1e-12)
     w_vis = 1.0 - W_NIR
-    w_region = [w_vis] + [W_NIR * w_i for w_i in SW_H2O_W]
-    inc = _column(w_region, pmid)[:, :, 0] * s_toa        # [7, C]
+    inc = terms["w_region"][:, :, 0] * s_toa              # [7, C]
     R, T = _two_stream(tau, omega, gsc)
     abs_all, sfc_all, refl_all = _adding_lm(R, T, inc, albedo)
 
@@ -309,10 +320,11 @@ def sw_fluxes(mu0, solcon, pmid, pint, q, o3mmr, cldfra, cwp, rel, rei, fice,
 # longwave
 # ---------------------------------------------------------------------------
 
-def lw_fluxes(t, q, o3mmr, pmid, pint, cld_emis, cldfra, tsfc, emiss=1.0):
+def lw_fluxes(t, q, o3mmr, pmid, pint, cld_emis, cldfra, tsfc, emiss=1.0,
+              *, terms):
     """Longwave fluxes and heating via the calibrated k-distribution
-    emissivity method.  Fields [C, K], k=0 lowest; returns dict(qrl [K/s]
-    [C, K], olr, lwdnb, flns)."""
+    emissivity method.  Fields [C, K], k=0 lowest; `terms` from
+    term_tables; returns dict(qrl [K/s] [C, K], olr, lwdnb, flns)."""
     sb, g_grav, cp = constants.stbolt, constants.gravity, constants.cp
     t, q, o3mmr, pmid, pint, cld_emis, cldfra = map(
         _lm, (t, q, o3mmr, pmid, pint, cld_emis, cldfra))
@@ -337,23 +349,19 @@ def lw_fluxes(t, q, o3mmr, pmid, pint, cld_emis, cldfra, tsfc, emiss=1.0):
 
     # the 8 terms on a leading axis: 4 H2O (+ continuum), 3 CO2, 1 O3
     tau = torch.cat([
-        _column([DIFF * k for k in LW_H2O_K], t) * u_h2o * pscale
-        + DIFF * LW_CNT_K * u_cnt,
-        _column([DIFF * LW_CO2_K * r for _, r in LW_CO2_SPLIT], t)
-        * u_co2 * pscale,
+        terms["lw_h2o_k"] * u_h2o * pscale + DIFF * LW_CNT_K * u_cnt,
+        terms["lw_co2_k"] * u_co2 * pscale,
         (DIFF * LW_O3_K * u_o3)[None]])                   # [8, K, C]
-    w = (list(LW_H2O_W) + [LW_CO2_W * f for f, _ in LW_CO2_SPLIT]
-         + [LW_O3_W])
+    w = terms["lw_w"]                                     # [8, 1, 1]
     tr = torch.exp(-torch.clamp(tau, 0.0, 80.0)) * (1.0 - eps_c)
-    src = _column(w, t) * B * (1.0 - tr)                  # emission of a layer
+    src = w * B * (1.0 - tr)                              # emission of a layer
 
     f, fdn = torch.zeros_like(tr[:, 0]), [None] * K
     for i in range(K - 1, -1, -1):                        # downward sweep
         f = f * tr[:, i] + src[:, i]
         fdn[i] = f
     fdn = torch.stack(fdn, dim=1)                         # [8, K, C] at layer bottoms
-    f0 = (_column([w_j * emiss for w_j in w], t)[:, :, 0] * B_sfc
-          + (1.0 - emiss) * fdn[:, 0])
+    f0 = w[:, :, 0] * emiss * B_sfc + (1.0 - emiss) * fdn[:, 0]
     f, fup = f0, [f0]
     for i in range(K):                                    # upward sweep
         f = f * tr[:, i] + src[:, i]
@@ -361,7 +369,7 @@ def lw_fluxes(t, q, o3mmr, pmid, pint, cld_emis, cldfra, tsfc, emiss=1.0):
     fup = torch.stack(fup, dim=1)                         # [8, K+1, C]
 
     Fdn, Fup = fdn[0], fup[0]                             # summed in term order
-    for j in range(1, len(w)):
+    for j in range(1, w.shape[0]):
         Fdn = Fdn + fdn[j]
         Fup = Fup + fup[j]
     Fdn = torch.cat([Fdn, torch.zeros_like(Fdn[:1])])     # [K+1, C]

@@ -51,6 +51,14 @@ def getfactors(cycflag: bool, np1: int, cdayminus: float, cdayplus: float,
 def oznint(julian: float, ozmixm: np.ndarray, ozncyc: bool = True):
     """Time-interpolate monthly ozone climatology to the current julian day
     (ra_cam_radctl_support.rg:71-131).  ozmixm: [nMonths, ..., levsiz]."""
+    nm, np1, fact1, fact2 = oznint_weights(julian, ozncyc)
+    return ozmixm[nm] * fact1 + ozmixm[np1] * fact2
+
+
+def oznint_weights(julian: float, ozncyc: bool = True):
+    """oznint's two months and their weights, (nm, np1, fact1, fact2):
+    the month profiles combine as ozmixm[nm] * fact1 + ozmixm[np1] *
+    fact2, on the host or on a device table."""
     intjulian = julian + 1.0
     ijul = int(np.floor(intjulian))
     intjulian = intjulian - ijul
@@ -65,7 +73,7 @@ def oznint(julian: float, ozmixm: np.ndarray, ozncyc: bool = True):
     nm = np1 - 1 if np1 > 0 else 11
     cdayozm = DATE_OZ[nm]
     fact1, fact2 = getfactors(ozncyc, np1, cdayozm, cdayozp, intjulian)
-    return ozmixm[nm] * fact1 + ozmixm[np1] * fact2
+    return nm, np1, float(fact1), float(fact2)
 
 
 def radozn(pmid, pin, ozmix):

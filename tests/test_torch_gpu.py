@@ -16,9 +16,11 @@ radiation, history and a checkpoint, and an exact restart from it), on the
 card; the stacked 4-shard step (its halo refresh through Kernel 4) and a
 regional run with its LBC stream, on the card against the CPU; the
 supercell's validation runner (mesh level 3) on the card against the
-CPU. Kernel 5 (sedimentation) on probes.sediment_inputs at the moist step's
-shape (41 levels, 40962 columns, 53 substeps) and at synthetic shapes, and
-inside the schemes that call it."""
+CPU. The radiation of Model.step on the card, which must not wait for the
+device, against the benchmark's plain radiation. Kernel 5 (sedimentation)
+on probes.sediment_inputs at the moist step's shape (41 levels, 40962
+columns, 53 substeps) and at synthetic shapes, and inside the schemes that
+call it."""
 
 import numpy as np
 import pytest
@@ -484,6 +486,57 @@ def test_radiation_on_the_card_matches_the_cpu(cuda, cpu_model, dtype):
     cpu.step(1)
     assert K1.launches == 4 and K2.launches > 27
     assert rel_err(cpu.state.theta_m, gpu.state.theta_m.cpu().double()) < tol
+
+
+# float32 heating of the step's radiation against the float64 plain
+# reference, relative to the largest |heating|: the float32 inputs carry
+# 6e-8 of rounding, and the heating is a flux divergence, the difference
+# of net fluxes of some 100 W/m^2 across layers that absorb ~1 W/m^2, so
+# the rounding of the fluxes grows ~1e3-fold in it; the exponentials of
+# the 15 spectral terms and the 41-level adding and emission recurrences
+# add their own. 1e-3 is the limit of the float32 radiation against the
+# CPU above.
+RAD_F32_RTOL = 1e-3
+
+
+@pytest.mark.gpu
+def test_step_radiation_on_the_card_waits_for_nothing(cuda, cpu_model):
+    """The radiation call of Model.step (config_radt_lw/sw_scheme on, 41
+    levels, float32, JW + WSM6 with condensate seeded) on the card under
+    torch.cuda.set_sync_debug_mode("error"): no call in it copies from the
+    host or waits for the device. Its heating against the float64 plain
+    reference of benchmark/references/plain_camrad.py on the CPU, on the
+    same state, within RAD_F32_RTOL."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark.references.plain_camrad import PlainRadiation
+    nl = Namelist(**dict(KW, dtype="float32", config_nvertlevels=41),
+                  config_moisture=True, config_microphysics="wsm6",
+                  config_pbl="ysu_lite", config_radt_lw_scheme="cam_lw",
+                  config_radt_sw_scheme="cam_sw")
+    cpu = build_model(nl.replace(dtype="float64"), cpu_model.mesh,
+                      device="cpu")
+    gpu = build_model(nl, cpu_model.mesh, device="cuda")
+    cpu.state = probes.seeded_condensate(cpu.state, seed=0)
+    gpu.state = gpu.state.replace(scalars=cpu.state.scalars.to(
+        cuda, gpu.dtype))
+    gpu.step_fn = lambda state: state          # the radiation alone
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu.step(1)                             # step 0 rings
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert gpu.radiation_calls == 1
+    vg = cpu.vgrid
+    plain = PlainRadiation(cpu.mesh.latCell, cpu.mesh.lonCell,
+                           (vg.cf1, vg.cf2, vg.cf3), cpu.static.pressure_base)
+    want = plain.tendency(cpu.state, 0.0)
+    got = gpu.state.rt_diabatic_tend.cpu().double()
+    assert rel_err(want, got) < RAD_F32_RTOL
 
 
 @pytest.mark.gpu

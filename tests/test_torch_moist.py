@@ -50,6 +50,7 @@ from mpas_tpu_torch.ops import scalars as TSC
 from mpas_tpu_torch.ops import tendencies as TT
 
 from test_torch_cellform import KW, carry
+from test_torch_copies import as_mpas_tpu
 from test_torch_ops import assert_close
 
 STEP_RTOL = 1e-10
@@ -149,7 +150,7 @@ def test_build_model_matches_reference_initial_state(jax_models, name):
         generate_mesh(levels=3, lloyd_iterations=lloyd,
                       sphere_radius=kw.get("config_sphere_radius", 6371229.0)),
         device="cpu")
-    assert model.namelist.to_dict() == jm.namelist.to_dict()
+    assert as_mpas_tpu(model.namelist.to_dict()) == jm.namelist.to_dict()
     stage = {2: "init_jw", 21: "init_mountain_wave", 22: "init_squall"}[
         model.namelist.config_init_case]
     assert stage in model.setup_seconds

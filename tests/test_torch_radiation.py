@@ -1,8 +1,9 @@
 """mpas_tpu_torch's radiation against mpas_tpu's, float64 on the CPU.
 
   - the numpy copies (the saturation tables, the radiation support
-    routines, the standard atmospheres, physics_init's climatologies and
-    time_params' values) are array-equal to the originals;
+    routines, the standard atmospheres, physics_init's climatologies) and
+    the time factors (time_factors against time_params) are array-equal
+    to the originals;
   - every torch function of physics/tables.py, radiation_support.py,
     radiation.py and driver.py agrees with the JAX function at 1e-12 of
     each output's largest magnitude, on random columns made from a numpy
@@ -43,6 +44,8 @@ from test_torch_ops import assert_close
 
 C, K = 24, 10
 JULIANS = (0.0, 1.0, 15.5, 80.25, 100.0, 200.7, 364.9, 400.3)
+# the solves' per-term coefficients, built once as the model builds them
+TERMS = TR.term_tables(torch.float64, "cpu")
 
 
 def columns(seed=0):
@@ -81,12 +84,13 @@ def cols():
 @pytest.fixture(scope="module")
 def physics():
     """(JAX PhysicsState, port PhysicsState), their device tables and the
-    time factors of one interval."""
+    time factors of one interval (the port's as every caller takes them,
+    from its device tables)."""
     jp, tp = JD.physics_init(), TD.physics_init()
+    ttab = TD._device_tables(tp, torch.float64, "cpu")
     return dict(j=jp, t=tp, jtab=JD._device_tables(jp, jnp.float64),
-                ttab=TD._device_tables(tp, torch.float64, "cpu"),
-                jtp=JD.time_params(jp, 80.25, jnp.float64),
-                ttp=TD.time_params(tp, 80.25, torch.float64, "cpu"))
+                ttab=ttab, jtp=JD.time_params(jp, 80.25, jnp.float64),
+                ttp=TD.time_factors(ttab["ozmixm"], 80.25))
 
 
 @pytest.fixture(scope="module")
@@ -182,15 +186,19 @@ def test_physics_init_equal():
 
 
 @pytest.mark.parametrize("julian", JULIANS)
-def test_time_params_equal(julian):
-    jp, tp = JD.physics_init(), TD.physics_init()
+def test_time_factors_equal(julian):
+    """The factors every radiation call takes (Python floats, the ozone
+    weighted on the device table) equal mpas_tpu's time_params; the
+    ozone keeps the table's dtype."""
+    jp = JD.physics_init()
     j = JD.time_params(jp, julian, jnp.float64)
-    t = TD.time_params(tp, julian, torch.float64, "cpu")
+    ozmixm = torch.from_numpy(TD.physics_init().ozmixm)
+    t = TD.time_factors(ozmixm, julian)
     assert set(j) == set(t)
+    assert all(type(t[k]) is float for k in ("declin", "solcon", "hour"))
     for k in j:
-        assert t[k].dtype == torch.float64 and t[k].device.type == "cpu"
-        assert np.array_equal(np.asarray(j[k]), t[k].numpy()), k
-    assert TD.time_params(tp, julian, torch.float32, "cpu")["ozmix"].dtype \
+        assert np.array_equal(np.asarray(j[k]), np.asarray(t[k])), k
+    assert TD.time_factors(ozmixm.float(), julian)["ozmix"].dtype \
         == torch.float32
 
 
@@ -300,7 +308,7 @@ def test_sw_fluxes(cols, optics, cloudy, aerosol):
     j_out = JR.sw_fluxes(*map(J, args[:1]), args[1], *map(J, args[2:]),
                          aer_mmr=J(aer), albedo=0.15)
     t_out = TR.sw_fluxes(T(args[0]), args[1], *map(T, args[2:]),
-                         aer_mmr=T(aer), albedo=0.15)
+                         aer_mmr=T(aer), albedo=0.15, terms=TERMS)
     assert (cols["mu0"] < 0).any() and (cols["mu0"] > 0.5).any()
     assert float(t_out["qrs"].max()) > 0.0
     assert_close(j_out, t_out)
@@ -314,7 +322,7 @@ def test_lw_fluxes(cols, optics, cloudy, emiss):
     args = (cols["t"], cols["qv"], optics["o3"], cols["p"], optics["pint"],
             emis, cld, cols["t"][:, 0] + 2.0)
     assert_close(JR.lw_fluxes(*map(J, args), emiss=emiss),
-                 TR.lw_fluxes(*map(T, args), emiss=emiss))
+                 TR.lw_fluxes(*map(T, args), emiss=emiss, terms=TERMS))
 
 
 def test_cloudiness(cols, physics):
@@ -439,7 +447,8 @@ def atmosphere(kind):
 def clear_lw(a):
     z = torch.zeros_like(a["t"])
     return TR.lw_fluxes(a["t"], a["q"], a["o3"], a["pmid"], a["pint"], z, z,
-                        torch.full((1,), a["t_sfc"], dtype=torch.float64))
+                        torch.full((1,), a["t_sfc"], dtype=torch.float64),
+                        terms=TERMS)
 
 
 @pytest.mark.parametrize("kind,olr_t,dlr_t", LW_CASES)
@@ -467,7 +476,8 @@ def test_isothermal_atmosphere_olr_is_sigma_t4():
     o3 = torch.full((Cn, Kn), 5e-8, dtype=torch.float64)
     zero = torch.zeros((Cn, Kn), dtype=torch.float64)
     out = TR.lw_fluxes(t, q, o3, pmid, pint, zero, zero,
-                       torch.full((Cn,), T0, dtype=torch.float64))
+                       torch.full((Cn,), T0, dtype=torch.float64),
+                       terms=TERMS)
     np.testing.assert_allclose(out["olr"].numpy(), constants.stbolt * T0 ** 4,
                                rtol=2e-3)
     assert float(out["qrl"].abs().max()) < 1e-3
@@ -496,7 +506,7 @@ def _sw_tropical(cld_layers=None, cwp_value=0.0, frac=0.0, mu=0.5):
     rel, rei = TR.cldefr(a["t"])
     out = TR.sw_fluxes(torch.full((1,), mu, dtype=torch.float64), 1365.0,
                        a["pmid"], a["pint"], a["q"], a["o3"], cld, cwp, rel,
-                       rei, TR.ice_fraction(a["t"]))
+                       rei, TR.ice_fraction(a["t"]), terms=TERMS)
     return a, cld, cwp, out
 
 
@@ -523,9 +533,9 @@ def test_cloud_effects_signs():
     z = torch.zeros_like(a["t"])
     tsfc = torch.full((1,), a["t_sfc"], dtype=torch.float64)
     lw0 = TR.lw_fluxes(a["t"], a["q"], a["o3"], a["pmid"], a["pint"], z, z,
-                       tsfc)
+                       tsfc, terms=TERMS)
     lw1 = TR.lw_fluxes(a["t"], a["q"], a["o3"], a["pmid"], a["pint"], emis,
-                       cld, tsfc)
+                       cld, tsfc, terms=TERMS)
     assert float(sw1["swup_toa"][0]) > 2.0 * float(sw0["swup_toa"][0])
     assert float(sw1["fsns"][0]) < 0.6 * float(sw0["fsns"][0])
     assert float(lw1["olr"][0]) < float(lw0["olr"][0]) - 10.0

@@ -29,6 +29,7 @@ from mpas_tpu_torch.validation import (jw, moist, mountain_wave,
 from mpas_tpu_torch.validation.common import surface_pressure
 
 from test_torch_cellform import carry
+from test_torch_copies import as_mpas_tpu
 
 RTOL = 1e-10
 LEVEL = 2
@@ -91,7 +92,8 @@ def jw_runs(mesh):
     model, JAX records)."""
     run = jw.run("jw480", mesh=mesh, steps=STEPS, record_every=EVERY,
                  device="cpu", log=None, **SMALL)
-    nl = JNamelist(**jw.make_namelist(720.0, **SMALL).to_dict())
+    nl = JNamelist(**as_mpas_tpu(
+        jw.make_namelist(720.0, **SMALL).to_dict()))
 
     def record(m):
         sp = tool_surface_pressure(m)
@@ -141,7 +143,8 @@ def test_moist_runner_matches_the_tools_loop(mesh, preset):
     run = moist.run(preset, mesh=mesh, steps=STEPS, record_every=EVERY,
                     device="cpu", log=None, **SMALL)
     mp = moist.PRESETS[preset]
-    nl = JNamelist(**moist.make_namelist(mp, **SMALL).to_dict())
+    nl = JNamelist(**as_mpas_tpu(
+        moist.make_namelist(mp, **SMALL).to_dict()))
     assert nl.config_pbl == ("ysu_lite" if mp == "wsm6" else "off")
 
     def record(m):
@@ -171,7 +174,7 @@ def test_mountain_wave_runner_matches_the_tools_loop():
     run = mountain_wave.run(mesh=mesh, mesh_level=LEVEL, steps=STEPS,
                             record_every=EVERY, device="cpu", log=None,
                             **SMALL)
-    jm, recs = j_loop(JNamelist(**nl.to_dict()), mesh,
+    jm, recs = j_loop(JNamelist(**as_mpas_tpu(nl.to_dict())), mesh,
                       lambda m: m.summarize())
     assert_series(run.records, recs, summary_keys())
     ref = dict(
@@ -198,7 +201,7 @@ def test_supercell_runner_matches_the_tools_loop():
         return dict(wmax=max(abs(s["w_min"]), abs(s["w_max"])),
                     rain_max=float(np.asarray(m.state.rainnc).max()), **s)
 
-    jm, recs = j_loop(JNamelist(**nl.to_dict()), mesh, record)
+    jm, recs = j_loop(JNamelist(**as_mpas_tpu(nl.to_dict())), mesh, record)
     assert_series(run.records, recs, ("wmax", "rain_max") + summary_keys())
     st = jm.state
     ref = dict(
@@ -218,7 +221,8 @@ def test_radiation_runner_matches_the_tools_loop(mesh):
     small = dict(SMALL, config_dt=1800.0)
     run = radiation_coupled.run(mesh=mesh, steps=STEPS, record_every=EVERY,
                                 device="cpu", log=None, **small)
-    nl = JNamelist(**radiation_coupled.make_namelist(**small).to_dict())
+    nl = JNamelist(**as_mpas_tpu(
+        radiation_coupled.make_namelist(**small).to_dict()))
     phys = j_physics_init()
     julians = []
 
