@@ -143,12 +143,13 @@ a CUDA device it exits non-zero before printing any result.
 import bisect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
-from benchmark.trace import trace_steps
+from benchmark.trace import merged, trace_steps
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core float32, data sheet
@@ -157,6 +158,11 @@ PEAK_FLOPS = {"float32": 67e12,    # non-tensor-core float32, data sheet
 # kernel, counted from csrc/acoustic_column.cu (rs/ts and the right-hand side
 # ~37, the two sweeps 4, damping, wwAvg and recovery ~23)
 ACOUSTIC_FLOPS_PER_POINT = 64
+# the hand-written kernels of a step, by their name in a trace (Kernel 2 in
+# its direct form)
+HAND_KERNELS = {k: re.compile(rf"\b{name}\b") for k, name in (
+    ("acoustic_column", "acoustic_tile_kernel"),
+    ("gather_reduce", "direct_kernel"), ("sediment", "sediment_kernel"))}
 MAIN_STEPS = 10
 ORIENT_STEPS = 5      # the aligned numbering's counted steps
 SQUALL_STEPS = 60
@@ -222,30 +228,156 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def graph_counts(stepper):
+    """(captures, replays) of the step graph (dynamics/graph.py) of a Model
+    or of a RegionalDriver's model; (0, 0) for a stepper that has none
+    (ShardedModel steps eagerly)."""
+    model = getattr(stepper, "model", stepper)
+    return (getattr(model, "graph_captures", 0),
+            getattr(model, "graph_replays", 0))
+
+
+def dispatched(steps, before, after):
+    """Of `steps` steps over which a model's graph counts went from
+    `before` to `after` (graph_counts): the captures, the replays, and the
+    steps whose kernels the host launched one by one through the wrappers,
+    which count them: each eager step and each capture. A replay launches
+    the captured kernels from the graph, where no wrapper sees them."""
+    captures, replays = after[0] - before[0], after[1] - before[1]
+    return dict(graph_captures=captures, graph_replays=replays,
+                dispatched_steps=steps - replays + captures)
+
+
+def per_dispatched_step(launches, graph):
+    """{kernel: launches a dispatched step}, or None where every step was a
+    replay of a graph captured before."""
+    n = graph["dispatched_steps"]
+    return {k: v / n for k, v in launches.items()} if n else None
+
+
+def same_launches(what, counted, prof):
+    """Fails unless the traced replays of `prof` (profile_steps) ran the
+    hand-written kernels that the steps the host dispatched in `counted` (a
+    counted run's `dispatched` and `launches`, which hold the capture)
+    launched, and no more of them: a replay launches the nodes its capture
+    recorded, so the capture's count is a replayed step's, exactly. The
+    traced figure may read lower: the profiler drops a few device records
+    of a replay (2-3 of ~11,700 in 3 moist steps, one Kernel 1 launch of 8
+    in 2 regional steps, on an H100). Kernel 2 is compared in its direct
+    form, the one its trace name matches."""
+    traced = prof["hand_kernels_per_step"]
+    if prof["graph_replays"] != prof["traced_steps"]:
+        raise RuntimeError(f"{what}: {prof['graph_replays']} of "
+                           f"{prof['traced_steps']} traced steps replayed")
+    n, got = counted["dispatched_steps"], counted["launches"]
+    if not n:
+        raise RuntimeError(f"{what}: the counted run dispatched no step")
+    want = {"acoustic_column": got["acoustic_column"] / n,
+            "gather_reduce": (got["gather_reduce"]
+                              - got["gather_reduce_row_form"]) / n,
+            "sediment": got["sediment"] / n}
+    bad = {k: (v, traced[k]) for k, v in want.items()
+           if (v > 0) != (traced[k] > 0) or traced[k] > v}
+    if bad:
+        raise RuntimeError(f"{what}: launches a dispatched step against a "
+                           f"traced replay differ: {bad}")
+
+
+def check_graph(counted, what):
+    """Fails unless the counted run (counted_steps) captured the step once
+    and replayed it every step, the capture's included: the path it counts
+    is the graph's."""
+    if (counted["graph_captures"], counted["graph_replays"]) != (
+            1, counted["steps"]):
+        raise RuntimeError(f"{what}: {counted['graph_captures']} captures "
+                           f"and {counted['graph_replays']} replays in "
+                           f"{counted['steps']} steps")
+
+
+def reset_launches():
+    """Sets the wrappers' launch counters of Kernels 1, 2 and 5 to 0."""
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.physics import sediment
+    acoustic_column.launches = gather_reduce.launches = 0
+    gather_reduce.row_form_launches = sediment.launches = 0
+
+
+def read_launches():
+    """The wrappers' launches of Kernels 1, 2 (and of them, the row form)
+    and 5 since reset_launches."""
+    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    from mpas_tpu_torch.physics import sediment
+    return {"acoustic_column": acoustic_column.launches,
+            "gather_reduce": gather_reduce.launches,
+            "gather_reduce_row_form": gather_reduce.row_form_launches,
+            "sediment": sediment.launches}
+
+
 def profile_steps(model, n, torch):
     """Trace `n` steps (benchmark/trace.py): launches per step, the
     device-busy share (union of the device operations' intervals over the
     traced wall time), device time per step by kernel name, largest first,
-    and the step's top-level spans (`parts`)."""
+    the step's top-level spans (`parts`), the graph's captures and replays
+    in the traced steps (`dispatched`) and each hand-written kernel's
+    launches a step by its name in the trace (`hand_kernels_per_step`,
+    which counts a replayed step's kernels, as no wrapper does)."""
+    before = graph_counts(model)
     tr = trace_steps(lambda: model.step(1), n, torch)
+    graph = dispatched(n, before, graph_counts(model))
     by_name = tr.by_name()
     device_ms = sum(v[1] for v in by_name.values()) * 1e3
     by_kind = lambda *keys: sum(s for k, (_, s) in by_name.items()
                                 if any(x in k for x in keys)) * 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:PROFILE_TOP]
     return dict(
-        traced_steps=n, traced_wall_ms=tr.wall_s * 1e3,
+        traced_steps=n, **graph, traced_wall_ms=tr.wall_s * 1e3,
         device_busy_share=tr.busy_s / tr.wall_s,
         kernel_device_ms_per_step=device_ms / n,
         launches_per_step=len(tr.device) / n,
         # index_select and torch.gather: one kernel in recent PyTorch builds
         gather_ms_per_step=by_kind("scatter_gather", "indexSelect"),
         cat_ms_per_step=by_kind("CatArray"),
+        hand_kernels_per_step={
+            k: sum(c for name, (c, _) in by_name.items() if pat.search(name))
+            / n for k, pat in HAND_KERNELS.items()},
         top_kernels=[{"name": k[:90], "launches_per_step": c / n,
                       "ms_per_step": sec * 1e3 / n,
                       "share_of_kernel_time": sec * 1e3 / device_ms}
                      for k, (c, sec) in top],
         parts=span_parts(tr))
+
+
+def graph_trace_lead(model, torch):
+    """Where the first milliseconds of a traced window of replays go (the
+    benchmark's `device_idle_pct` counts them): PROFILE_STEPS steps traced
+    as the benchmark traces them (benchmark/trace.py), twice in a row, then
+    once more after one step inside the same profiler session, synchronised
+    before the counted steps. Each session gives, from the first counted
+    step's `step.graph` span, the ms to the first device operation
+    (`lead_ms`), the host ms of each `cudaGraphLaunch`, and the idle share
+    from that span to the last operation's end; and the idle share as the
+    benchmark reads it over the whole traced wall."""
+    def session(warm):
+        done = []
+
+        def step():
+            model.step(1)
+            if warm and not done:
+                torch.cuda.synchronize()
+            done.append(1)
+        tr = trace_steps(step, PROFILE_STEPS + warm, torch)
+        t0 = sorted(s for name, s, _ in tr.host if name == "step.graph")[warm]
+        window = [d for d in tr.device if d[1] >= t0]
+        end = max(e for _, _, e in window)
+        busy = sum(e - s for s, e in merged(window))
+        launches = sorted((s, e) for name, s, e in tr.host
+                          if name.startswith("cudaGraphLaunch"))
+        return dict(lead_ms=(min(s for _, s, _ in window) - t0) / 1e3,
+                    graph_launch_host_ms=[(e - s) / 1e3 for s, e in launches],
+                    idle_pct_from_span=100.0 * (1.0 - busy / (end - t0)),
+                    idle_pct_whole_wall=100.0 * (1.0 - tr.busy_s / tr.wall_s))
+    return {"first": session(0), "second": session(0),
+            "warm_inside": session(1)}
 
 
 def span_parts(tr):
@@ -776,34 +908,36 @@ def check_summary(summ, what):
 
 
 def counted_steps(model, torch, steps=MAIN_STEPS, k2_more_than=0):
-    """`steps` steps with the launch counters of Kernels 1 and 2 set to 0
-    first: the step times, the host CPU time the process spent per step
-    (more host work moves it, a busy host's other tenants do not), the
-    launches, the peak memory and the summary. Fails if either kernel never
-    launched, or Kernel 2 no more than `k2_more_than` times a step."""
-    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    """`steps` steps with the launch counters of Kernels 1, 2 and 5 set to 0
+    just before: the step times, the host CPU time the process spent per
+    step (more host work moves it, a busy host's other tenants do not), the
+    graph's captures and replays and the steps the host dispatched among
+    them (`dispatched`), the launches in those and a dispatched step, the
+    peak memory and the summary. Fails unless each dispatched step launched
+    both kernels and Kernel 2 more than `k2_more_than` times. A replayed
+    step's launches are read from its trace (profile_steps)."""
     from mpas_tpu_torch.probes import step_ms
-    acoustic_column.launches = gather_reduce.launches = 0
-    gather_reduce.row_form_launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    before = graph_counts(model)
     cpu0 = time.process_time()
     times = step_ms(model, steps)
     cpu_ms = (time.process_time() - cpu0) * 1e3 / steps
-    launches = {"acoustic_column": acoustic_column.launches,
-                "gather_reduce": gather_reduce.launches}
-    if any(v <= 0 for v in launches.values()):
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
-    if not launches["gather_reduce"] > k2_more_than * steps:
-        raise RuntimeError(f"gather_reduce launched {launches} times in "
-                           f"{steps} steps, no more than {k2_more_than} a step")
+    graph = dispatched(steps, before, graph_counts(model))
+    launches = read_launches()
+    per_step = per_dispatched_step(launches, graph)
+    if per_step is not None and not (
+            per_step["acoustic_column"] > 0
+            and per_step["gather_reduce"] > k2_more_than):
+        raise RuntimeError(f"a dispatched step launched {per_step}: Kernel "
+                           f"1 never or Kernel 2 no more than {k2_more_than}"
+                           " times")
     return dict(steps=steps, ms_per_step_median=statistics.median(times),
-                ms_per_step=times, host_cpu_ms_per_step=cpu_ms,
-                launches=launches,
-                gather_reduce_row_form_launches=gather_reduce.row_form_launches,
+                ms_per_step=times, host_cpu_ms_per_step=cpu_ms, **graph,
+                launches=launches, launches_per_dispatched_step=per_step,
                 gather_sectors=model.mesh_arrays.gather_sectors,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 summary=model.summarize())
-
 
 def agreement(nl, mesh, what, torch):
     """2 float64 steps on the card and on the CPU: max relative difference
@@ -1006,18 +1140,26 @@ def agreement_radiation(nl, mesh, torch):
 
 def turns(a, b, pairs):
     """Median ms of a.step(1) and of b.step(1), timed in turns (a b, b a,
-    ...), with the launches of Kernels 1 and 2 a step of each."""
-    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    ...), and of each the graph's captures and replays (`dispatched`) and
+    the launches of Kernels 1 and 2 a step the host dispatched (None where
+    every step replayed a graph captured before)."""
     from mpas_tpu_torch.probes import step_ms
     ms = {id(a): [], id(b): []}
     launches = {id(a): 0, id(b): 0}
+    before = {id(m): graph_counts(m) for m in (a, b)}
     for i in range(pairs):
         for m in ((a, b) if i % 2 == 0 else (b, a)):
-            acoustic_column.launches = gather_reduce.launches = 0
+            reset_launches()
             ms[id(m)] += step_ms(m, 1)
-            launches[id(m)] += acoustic_column.launches + gather_reduce.launches
+            got = read_launches()
+            launches[id(m)] += got["acoustic_column"] + got["gather_reduce"]
+    graph = [dispatched(pairs, before[id(m)], graph_counts(m))
+             for m in (a, b)]
     return ([statistics.median(ms[id(m)]) for m in (a, b)],
-            [launches[id(m)] / pairs for m in (a, b)])
+            [dict(g, k1_k2_launches_per_dispatched_step=(
+                launches[id(m)] / g["dispatched_steps"]
+                if g["dispatched_steps"] else None))
+             for m, g in zip((a, b), graph)])
 
 
 def exchange_kernel4(sm, torch):
@@ -1117,8 +1259,7 @@ def sharded_run(model, torch):
         turns={"pairs": TURN_PAIRS, "single_ms_per_step_median": single_ms,
                "sharded_ms_per_step_median": sharded_ms,
                "sharded_over_single": sharded_ms / single_ms,
-               "k1_k2_launches_per_step": {"single": single_l,
-                                           "sharded": sharded_l}},
+               "single": single_l, "sharded": sharded_l},
         profile=prof, summary=summ, oracle_max_rel_diff=max(diff.values()))
 
 
@@ -1136,7 +1277,6 @@ def regional_run(mesh, nl, torch):
     from mpas_tpu_torch.dynamics.model import build_model
     from mpas_tpu_torch.io import lbc
     from mpas_tpu_torch.mesh.coefficients import mark_regional_zones
-    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
     from mpas_tpu_torch.probes import step_ms
     rmesh = mark_regional_zones(copy.copy(mesh), mesh.latCell > 0.15,
                                 n_relax=5)
@@ -1155,7 +1295,10 @@ def regional_run(mesh, nl, torch):
             snaps.append(lbc.extract_lbc(glob.state, cells, edges))
     driving_s = time.perf_counter() - t0
     stream = lbc.build_stream(times, cells, edges, snaps)
-    final = glob.state
+    # on the card glob.state is its graph's buffers, which the global
+    # steps below overwrite
+    final = glob.state.replace(u=glob.state.u.clone(),
+                               theta_m=glob.state.theta_m.clone())
     nl_r = nl.replace(config_apply_lbcs=True)
     reg = dataclasses.replace(
         glob, namelist=nl_r, state=s0, step_count=0,
@@ -1172,7 +1315,9 @@ def regional_run(mesh, nl, torch):
     sc = torch.from_numpy(np.where(spec_c)[0]).cuda()
     se = torch.from_numpy(np.where(spec_e)[0]).cuda()
     ms = {"regional": [], "global": []}
-    launches = {k: {"acoustic_column": 0, "gather_reduce": 0} for k in ms}
+    launches = {k: {} for k in ms}
+    models = {"regional": reg, "global": glob}
+    before = {k: graph_counts(m) for k, m in models.items()}
     zone_err = 0.0
     for i in range(REGIONAL_STEPS):
         for name in (("regional", "global") if i % 2 == 0
@@ -1180,10 +1325,10 @@ def regional_run(mesh, nl, torch):
             m = drv if name == "regional" else glob
             f = lbc.interp_fields(stream, reg.step_count * dt, reg.dtype,
                                   reg.device)
-            acoustic_column.launches = gather_reduce.launches = 0
+            reset_launches()
             ms[name] += step_ms(m, 1)
-            launches[name]["acoustic_column"] += acoustic_column.launches
-            launches[name]["gather_reduce"] += gather_reduce.launches
+            for k, v in read_launches().items():
+                launches[name][k] = launches[name].get(k, 0) + v
             if name == "regional":
                 for n, col, idx in (("theta_m", zc, sc), ("rho_zz", zc, sc),
                                     ("u", ze, se)):
@@ -1202,8 +1347,15 @@ def regional_run(mesh, nl, torch):
     if not (du < REGIONAL_BOUND and dth < REGIONAL_BOUND):
         raise RuntimeError(f"regional: interior off the global run: |du| "
                            f"{du}, |dtheta_m| {dth}")
+    graph = {k: dispatched(REGIONAL_STEPS, before[k], graph_counts(m))
+             for k, m in models.items()}
     prof = {"regional": profile_steps(drv, 2, torch),
             "global": profile_steps(glob, 2, torch)}
+    # the global model replays the graph its driving run captured, so only
+    # the regional one dispatched steps to compare with
+    same_launches("regional", dict(graph["regional"],
+                                   launches=launches["regional"]),
+                  prof["regional"])
     return dict(
         cells=rmesh.nCells, zone_cells=len(cells), zone_edges=len(edges),
         specified_cells=int(spec_c.sum()), interior_cells=int((rmesh.bdyMaskCell == 0).sum()),
@@ -1212,14 +1364,16 @@ def regional_run(mesh, nl, torch):
         setup_s=setup_s, driving_run_s=driving_s,
         ms_per_step_median={k: statistics.median(v) for k, v in ms.items()},
         ms_per_step=ms,
-        launches=launches,
-        launches_per_step={k: {x: n / REGIONAL_STEPS for x, n in v.items()}
-                           for k, v in launches.items()},
+        graph=graph, launches=launches,
+        launches_per_dispatched_step={
+            k: per_dispatched_step(v, graph[k]) for k, v in launches.items()},
         regional_over_global=(statistics.median(ms["regional"])
                               / statistics.median(ms["global"])),
         interior_max_abs_du=du, interior_max_abs_dtheta_m=dth,
         bound=REGIONAL_BOUND, zone_max_rel_err=zone_err, zone_limit=ZONE_REL,
         profile={k: {x: v[x] for x in ("launches_per_step",
+                                       "hand_kernels_per_step",
+                                       "graph_replays",
                                        "kernel_device_ms_per_step",
                                        "device_busy_share",
                                        "traced_wall_ms")}
@@ -1235,7 +1389,6 @@ def agreement_regional(nl, mesh, torch):
     from mpas_tpu_torch.dynamics.model import build_model
     from mpas_tpu_torch.io import lbc
     from mpas_tpu_torch.mesh.coefficients import mark_regional_zones
-    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
     rmesh = mark_regional_zones(copy.copy(mesh), mesh.latCell > 0.15,
                                 n_relax=5)
     drive = build_model(nl, rmesh, device="cpu")
@@ -1248,11 +1401,12 @@ def agreement_regional(nl, mesh, torch):
     states = {}
     for dev in ("cuda", "cpu"):
         m = build_model(nl_r, rmesh, device=dev)
-        acoustic_column.launches = gather_reduce.launches = 0
+        reset_launches()
         lbc.RegionalDriver(m, stream).step(2)
         if dev == "cuda":
-            launches = {"acoustic_column": acoustic_column.launches,
-                        "gather_reduce": gather_reduce.launches}
+            # the eager step and the capture
+            launches = read_launches()
+            graph = dispatched(2, (0, 0), graph_counts(m))
         states[dev] = m.state
     names = ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p", "ru", "rw",
              "exner", "pressure_p")
@@ -1260,10 +1414,11 @@ def agreement_regional(nl, mesh, torch):
                         torch) for n in names}
     emit({"phase": "agreement_regional", "cells": rmesh.nCells,
           "zone_cells": len(cells), "levels": nl.config_nvertlevels,
-          "dtype": nl.dtype, "steps": 2, "launches": launches,
+          "dtype": nl.dtype, "steps": 2, **graph, "launches": launches,
           "max_rel_err": agree, "limit_rel": AGREE_REL})
     bad = {k: v for k, v in agree.items() if not v <= AGREE_REL}
-    if bad or min(launches.values()) <= 0:
+    if bad or min(launches["acoustic_column"],
+                  launches["gather_reduce"]) <= 0:
         raise RuntimeError(f"agreement_regional: card and CPU disagree: {bad}"
                            f" (launches {launches})")
 
@@ -1315,8 +1470,8 @@ def cli_runs(torch):
     import tempfile
     import numpy as np
     from mpas_tpu_torch import __main__ as cli
+    from mpas_tpu_torch.dynamics import model as model_module
     from mpas_tpu_torch.mesh.netcdf_io import read_netcdf
-    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
     home = os.environ.get("HOME")
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["HOME"] = tmp
@@ -1336,18 +1491,31 @@ def cli_runs(torch):
                     raise RuntimeError(f"cli {flags}: exit {rc}\n{log}")
                 return log, time.perf_counter() - t0
 
-            acoustic_column.launches = gather_reduce.launches = 0
-            log, seconds = run(
-                "--grid", "generate:6", "--levels", "41", "--dt", "300",
-                "--dtype", "float32", "--physics", "--radt-steps",
-                str(RADT_STEPS), "--steps", str(CLI_STEPS),
-                "--history-every", "5", "--checkpoint-every", "5",
-                "--output", path("hist.nc"), "--checkpoint-path",
-                path("ck.npz"))
-            launches = {"acoustic_column": acoustic_column.launches,
-                        "gather_reduce": gather_reduce.launches}
-            if any(v <= 0 for v in launches.values()):
-                raise RuntimeError(f"cli: a kernel never launched: {launches}")
+            # the model the CLI builds, for its graph's counts
+            built = []
+            build = model_module.build_model
+            model_module.build_model = lambda *a, **k: (
+                built.append(build(*a, **k)) or built[-1])
+            reset_launches()
+            try:
+                log, seconds = run(
+                    "--grid", "generate:6", "--levels", "41", "--dt", "300",
+                    "--dtype", "float32", "--physics", "--radt-steps",
+                    str(RADT_STEPS), "--steps", str(CLI_STEPS),
+                    "--history-every", "5", "--checkpoint-every", "5",
+                    "--output", path("hist.nc"), "--checkpoint-path",
+                    path("ck.npz"))
+            finally:
+                model_module.build_model = build
+            launches = read_launches()
+            graph = dispatched(CLI_STEPS, (0, 0), graph_counts(built[0]))
+            del built
+            if (min(launches["acoustic_column"], launches["gather_reduce"])
+                    <= 0 or (graph["graph_captures"], graph["graph_replays"])
+                    != (1, CLI_STEPS - 1)):
+                raise RuntimeError(f"cli: a kernel never launched, or the "
+                                   f"steps did not replay: {launches} "
+                                   f"{graph}")
             timing = re.search(r"(\d+) steps in ([\d.]+)s \(([\d.]+) ms/step",
                                log)
             parts = {k: float(v) for k, v in re.findall(
@@ -1366,7 +1534,10 @@ def cli_runs(torch):
                 ms_per_step_without_parts=(float(timing.group(2))
                                            - sum(parts.values()))
                 * 1e3 / CLI_STEPS,
-                process_seconds=seconds, launches=launches,
+                process_seconds=seconds, **graph,
+                # the whole run's: the build, the eager step, the capture
+                # and the history's diagnostics (the replays are not seen)
+                launches=launches,
                 history_bytes=os.path.getsize(path("hist.nc")),
                 history_dims=hist["_dims"],
                 checkpoint_bytes=os.path.getsize(path("ck.npz")),
@@ -1437,12 +1608,17 @@ def validation_run(preset, shapes_seen, torch):
     Kernel 2 at every call shape not seen before. Then the preset runs from
     its own start with the launch counters set to 0 just before and read
     just after, its artifacts (kept in memory) go through the reference's
-    checks, and PROFILE_STEPS more steps are traced. Returns the phase's
-    line, the checks, the artifacts and the Kernel 2 rows."""
-    from mpas_tpu_torch.ops import acoustic_column, gather_reduce
+    checks, and PROFILE_STEPS more steps are traced: the launches of its
+    steps the host dispatched (the run's, less the probe's build) must
+    equal those of a traced replay. Returns the phase's line, the checks,
+    the artifacts and the Kernel 2 rows."""
     from mpas_tpu_torch.validation import RUNNERS
     mod = RUNNERS[preset]
+    reset_launches()
     probe = mod.run(preset, steps=0, device="cuda", log=None).model
+    # the build's own launches (its initial diagnostics), which the run
+    # below repeats before its steps
+    built = read_launches()
     k1_args, calls, _ = record_step(probe)
     k1 = check_acoustic(k1_args, torch)
     new_calls = {k: v for k, v in calls.items() if k not in shapes_seen}
@@ -1454,28 +1630,33 @@ def validation_run(preset, shapes_seen, torch):
     torch.cuda.empty_cache()
 
     smi_before = smi_clocks()
-    acoustic_column.launches = gather_reduce.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     run = mod.run(preset, device="cuda", log=None)
     process_s = time.perf_counter() - t0
-    launches = {"acoustic_column": acoustic_column.launches,
-                "gather_reduce": gather_reduce.launches}
-    if not run.full or any(v <= 0 for v in launches.values()):
+    launches = read_launches()
+    stepped = {k: v - built[k] for k, v in launches.items()}
+    meta = run.meta()
+    graph = dispatched(meta["steps"], (0, 0), graph_counts(run.model))
+    if not run.full or min(launches["acoustic_column"],
+                           launches["gather_reduce"]) <= 0:
         raise RuntimeError(f"validation_{preset}: a cut run, or a kernel of "
                            f"the path never launched: {launches}")
     files = mod.artifacts(run)
     checks = mod.checks(run, files)
-    meta = run.meta()
     prof = profile_steps(run.model, PROFILE_STEPS, torch)
+    same_launches(f"validation_{preset}", dict(graph, launches=stepped),
+                  prof)
     line = dict(meta, **run.timing, process_s=process_s,
                 profile={k: prof[k] for k in
-                         ("launches_per_step", "device_busy_share",
+                         ("launches_per_step", "hand_kernels_per_step",
+                          "graph_replays", "device_busy_share",
                           "kernel_device_ms_per_step", "traced_wall_ms")},
                 smi_before=smi_before, smi_after=smi_clocks(),
                 setup_s=sum(run.model.setup_seconds.values()),
-                launches=launches,
-                launches_per_step={k: v / meta["steps"]
-                                   for k, v in launches.items()},
+                **graph, launches=launches, build_launches=built,
+                launches_per_dispatched_step=per_dispatched_step(stepped,
+                                                                 graph),
                 kernel1={k: k1[k] for k in ("float32", "float64")},
                 gather_reduce_new_shapes=[[r["Kt"], r["N"], r["R"], r["M"],
                                            r["S"]] for r in k2],
@@ -1550,16 +1731,19 @@ def main():
         gathers, index_vector_names(model.mesh_arrays), "default", torch)
 
     # 5. the main path: 10 full-width steps, counted
+    # (record_step's step was the eager one: the counted run's first step
+    # is the capture, the rest replay it)
     main = timed(lambda: counted_steps(model, torch))
-    launches = main["launches"]
     emit({"phase": "main_path", "cells": model.mesh.nCells,
           "edges": model.mesh.nEdges, "levels": 41, "dtype": "float32",
           "dt": 300.0, "setup_s": setup_s, "setup_s_by_stage": setup, **main})
     check_summary(main["summary"], "main_path")
+    check_graph(main, "main_path")
 
     # 6. where the time of a full-width step goes
-    emit({"phase": "profile",
-          **timed(lambda: profile_steps(model, PROFILE_STEPS, torch))})
+    prof = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
+    emit({"phase": "profile", **prof})
+    same_launches("profile", main, prof)
     shapes_seen = set(k2_calls)
     del k1_args, k2_calls, gathers
 
@@ -1594,14 +1778,16 @@ def main():
         gathers, index_vector_names(model.mesh_arrays), "aligned", torch)
     del calls, new_calls, gathers
     orient = timed(lambda: counted_steps(model, torch, ORIENT_STEPS))
-    prof = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
+    prof_o = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
     emit({"phase": "main_path_orient", "cells": model.mesh.nCells,
           "edges": model.mesh.nEdges, "edges_real": model.mesh.nEdgesReal,
           "non_owned_slots": model.mesh_arrays.eoc_split.width - 3,
           "levels": 41, "dtype": "float32", "dt": 300.0, "setup_s": setup_o,
           "setup_s_by_stage": model.setup_seconds, **orient,
-          "profile": prof})
+          "profile": prof_o})
     check_summary(orient["summary"], "main_path_orient")
+    check_graph(orient, "main_path_orient")
+    same_launches("main_path_orient", orient, prof_o)
     mesh_aligned = model.mesh
     del model
     torch.cuda.empty_cache()
@@ -1625,15 +1811,8 @@ def main():
     calls_moist = set(calls)
     del calls, new_calls
     torch.cuda.empty_cache()
-    from mpas_tpu_torch.physics import sediment
-    sediment.launches = 0
     moist = timed(lambda: counted_steps(model, torch,
                                         k2_more_than=DRY_K2_PER_STEP))
-    moist["sediment_launches"] = sediment.launches
-    if moist["sediment_launches"] != moist["steps"]:
-        raise RuntimeError(f"main_path_moist: Kernel 5 launched "
-                           f"{sediment.launches} times in {moist['steps']} "
-                           "steps, not once a step")
     emit({"phase": "main_path_moist", "cells": model.mesh.nCells,
           "edges": model.mesh.nEdges, "levels": 41, "dtype": "float32",
           "dt": 300.0, "microphysics": model.namelist.config_microphysics,
@@ -1644,8 +1823,16 @@ def main():
           "setup_s": setup_m, "setup_s_by_stage": model.setup_seconds,
           **moist, "moisture": check_moisture(model.state, "main_path_moist")})
     check_summary(moist["summary"], "main_path_moist")
+    check_graph(moist, "main_path_moist")
     prof_m = timed(lambda: profile_steps(model, PROFILE_STEPS, torch))
     emit({"phase": "profile_moist", **prof_m})
+    emit({"phase": "graph_trace_lead",
+          **timed(lambda: graph_trace_lead(model, torch))})
+    same_launches("profile_moist", moist, prof_m)
+    if moist["launches_per_dispatched_step"]["sediment"] != 1:
+        raise RuntimeError(f"main_path_moist: Kernel 5 launched "
+                           f"{moist['launches_per_dispatched_step']} "
+                           "a captured step, not once")
     check_moisture(model.state, "profile_moist")
     k5 = timed(lambda: check_sediment(model, torch))
     emit({"phase": "sediment", **k5})
@@ -1821,6 +2008,26 @@ def main():
     del probe["outputs"]
     take_forms = emit_take_forms(mesh, torch)
 
+    def launch_counts(k):
+        """Kernel k's launches a step on each path: a step the host
+        dispatched, which each replay launches again from the graph
+        (same_launches), or a ShardedModel's eager step; and the CLI's
+        whole run (its build, eager step, capture and history; its replays
+        launch from the graph, where no wrapper counts)."""
+        return {
+            "launches_per_step": main["launches_per_dispatched_step"][k],
+            "launches_per_step_orient": orient[
+                "launches_per_dispatched_step"][k],
+            "launches_per_step_moist": moist[
+                "launches_per_dispatched_step"][k],
+            "launches_per_step_regional": regional[
+                "launches_per_dispatched_step"]["regional"][k],
+            **{f"launches_per_step_validation_{p}": valid[p][
+                "launches_per_dispatched_step"][k]
+               for p in VALIDATION_PRESETS},
+            "launches_per_step_sharded": sharded["launches_per_step"][k],
+            "launches_cli_run": cli["full_width"]["launches"][k]}
+
     big = max(k2, key=lambda r: r["Kt"] * r["R"] * r["M"])
     k3 = max(study["rows"], key=lambda r: r["Kst"])
     a = probe["A"]
@@ -1828,15 +2035,7 @@ def main():
         {"name": "acoustic_column_update", "route": "cuda",
          "source": "mpas_tpu_torch/csrc/acoustic_column.cu",
          "replaces": "mpas_tpu/ops/pallas_acoustic.py:34",
-         "launches": launches["acoustic_column"],
-         "launches_orient": orient["launches"]["acoustic_column"],
-         "launches_moist": moist["launches"]["acoustic_column"],
-         "launches_cli": cli["full_width"]["launches"]["acoustic_column"],
-         "launches_sharded": sharded["launches"]["acoustic_column"],
-         "launches_regional": regional["launches"]["regional"][
-             "acoustic_column"],
-         **{f"launches_validation_{p}": valid[p]["launches"]["acoustic_column"]
-            for p in VALIDATION_PRESETS},
+         **launch_counts("acoustic_column"),
          "validation": {p: {k: valid[p]["kernel1"]["float32"][k] for k in
                             ("K", "C", "max_rel_err", "ms", "plain_ms",
                              "bound_ms", "tile_columns", "level_lanes",
@@ -1863,20 +2062,12 @@ def main():
          "source": "mpas_tpu_torch/csrc/gather_reduce.cu",
          "replaces": "tools/windowed_kernels.py:160",
          "also_replaces": ["tools/pallas_gather_probe.py:110"],
-         "launches": launches["gather_reduce"],
-         "launches_orient": orient["launches"]["gather_reduce"],
-         "launches_moist": moist["launches"]["gather_reduce"],
-         "launches_cli": cli["full_width"]["launches"]["gather_reduce"],
-         "launches_sharded": sharded["launches"]["gather_reduce"],
-         "launches_regional": regional["launches"]["regional"][
-             "gather_reduce"],
-         **{f"launches_validation_{p}": valid[p]["launches"]["gather_reduce"]
-            for p in VALIDATION_PRESETS},
+         **launch_counts("gather_reduce"),
          "validation_shapes": [[r["Kt"], r["N"], r["R"], r["M"], r["S"]]
                                for r in k2_valid],
          "moist_shapes": [[r["Kt"], r["N"], r["R"], r["M"], r["S"]]
                           for r in k2_moist],
-         "row_form_launches": main["gather_reduce_row_form_launches"],
+         "row_form_launches": main["launches"]["gather_reduce_row_form"],
          "max_abs_err": max(r["max_abs_err"]
                             for r in k2 + k2_orient + k2_moist + k2_valid),
          "max_err_over_bound": max(r["max_err_over_bound"]
@@ -1923,7 +2114,8 @@ def main():
         {"name": "sediment_species", "route": "cuda",
          "source": "mpas_tpu_torch/csrc/sediment.cu",
          "replaces": "mpas_tpu/physics/kessler.py:89",
-         "launches_moist": moist["sediment_launches"],
+         "launches_per_step_moist": moist["launches_per_dispatched_step"][
+             "sediment"],
          **{k: k5["float32"][k] for k in
             ("max_rel_err", "bit_equal", "ms", "ms_cold_l2", "ms_after_idle",
              "plain_ms", "bound_ms", "bound_by", "laws", "nfall")},

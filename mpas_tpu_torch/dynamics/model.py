@@ -34,6 +34,7 @@ from ..physics import kessler, wsm6
 from ..physics.driver import (host_diagnostics, make_radiation_fn,
                               physics_init)
 from ..tracing import span
+from . import graph as step_graph
 from . import srk3
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -116,6 +117,13 @@ class Model:
     radiation_calls: int = 0         # radiation calls, in the step or not
     # the last call's diagnostics, on the device (nothing copied)
     radiation_diags: Optional[dict] = field(default=None, repr=False)
+    # on the card: the step's CUDA graph (dynamics/graph.py), how often a
+    # step was captured and replayed, and the step function and state
+    # signature of the last eager step, which the next step captures
+    graph_captures: int = 0
+    graph_replays: int = 0
+    _graph: Optional[step_graph.StepGraph] = field(default=None, repr=False)
+    _graph_warm: Optional[tuple] = field(default=None, repr=False)
 
     @property
     def dtype(self):
@@ -129,13 +137,23 @@ class Model:
         """n steps; with radiation on (`radiation_interval`), each step on
         which MPAS's radiation alarm rings first runs the radiation into
         rt_diabatic_tend, which the step consumes and which holds until
-        the next ring."""
+        the next ring. The radiation runs eagerly.
+
+        On the card the step after the first is captured as one CUDA graph
+        and every later step replays it (dynamics/graph.py): the tensors of
+        `model.state` are then the graph's buffers, which the next step
+        overwrites, so a caller that keeps a state across steps clones it.
+        A state the caller assigns is copied into the buffers. On the CPU
+        every step runs `step_fn` eagerly."""
         for _ in range(n):
             if self.radiation_interval is not None and radiation_rings(
                     self.step_count, self.namelist.config_dt,
                     self.radiation_interval):
                 self.radiate()
-            self.state = self.step_fn(self.state)
+            if step_graph.engages(self.state):
+                step_graph.advance(self)
+            else:
+                self.state = self.step_fn(self.state)
             self.step_count += 1
         return self.state
 

@@ -388,6 +388,8 @@ def test_two_steps_on_the_card_match_the_cpu(cuda, cpu_model):
     K1.launches = K2.launches = K2.row_form_launches = 0
     gpu.step(2)
     cpu.step(2)
+    # the eager step and the capture, which the replay of step 2 follows
+    assert (gpu.graph_captures, gpu.graph_replays) == (1, 1)
     assert K1.launches == 8 and K2.launches == 54
     assert K2.row_form_launches == 0
     for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
@@ -403,6 +405,7 @@ def test_two_aligned_steps_on_the_card_match_the_cpu(cuda, cpu_model):
     K1.launches = K2.launches = 0
     gpu.step(2)
     cpu.step(2)
+    assert (gpu.graph_captures, gpu.graph_replays) == (1, 1)
     assert K1.launches == 8 and K2.launches > 0
     for n in ("u", "w", "theta_m", "rho_zz", "rho_p", "rtheta_p"):
         assert rel_err(getattr(cpu.state, n), getattr(gpu.state, n).cpu()) < 1e-9
@@ -545,16 +548,26 @@ def test_cli_on_the_card(cuda, tmp_path, monkeypatch):
     and a checkpoint; 2 steps + restart + 2 steps give the history of 4
     straight steps bit for bit."""
     from mpas_tpu_torch import __main__ as cli
+    from mpas_tpu_torch.dynamics import model as model_module
     from mpas_tpu_torch.mesh.netcdf_io import read_netcdf
     monkeypatch.setenv("HOME", str(tmp_path))
     flags = ["--grid", "generate:3", "--levels", "8", "--dtype", "float64",
              "--physics", "--radt-steps", "2", "--output-full-3d", "--quiet",
              "--device", "cuda"]
     path = lambda n: str(tmp_path / n)
+    built = []
+    build = model_module.build_model
+    monkeypatch.setattr(model_module, "build_model", lambda *a, **k: (
+        built.append(build(*a, **k)) or built[-1]))
     K1.launches = 0
     assert cli.main(flags + ["--steps", "4", "--output", path("a.nc"),
                              "--checkpoint-path", path("a.npz")]) == 0
-    assert K1.launches == 16
+    # 4 a step in the eager first step and in the captured second one; the
+    # captured step and the last two replay the step's CUDA graph, whose
+    # launches no wrapper counts
+    (model,) = built
+    assert (model.graph_captures, model.graph_replays) == (1, 3)
+    assert K1.launches == 2 * 4
     assert cli.main(flags + ["--steps", "2", "--checkpoint-every", "2",
                              "--output", path("b.nc"), "--checkpoint-path",
                              path("b.npz")]) == 0
@@ -629,14 +642,17 @@ def test_regional_steps_on_the_card_match_the_cpu(cuda):
 def test_supercell_runner_on_the_card_matches_the_cpu(cuda):
     """The validation runner of the supercell (WSM6 + PBL, 4 substeps) at
     mesh level 3 in float64: 3 records of 2 steps on the card, launches of
-    Kernels 1 and 2 counted, its records and artifact against the same run
-    on the CPU."""
+    Kernels 1 and 2 counted in the two steps the host dispatches (the
+    eager first step and the captured second one; the capture and the
+    other four steps replay the step's CUDA graph), its records and
+    artifact against the same run on the CPU."""
     from mpas_tpu_torch.validation import supercell
     kw = dict(mesh_level=3, steps=6, record_every=2, log=None,
               dtype="float64")
     K1.launches = K2.launches = 0
     gpu = supercell.run(device="cuda", **kw)
-    assert K1.launches == 6 * 8 and K2.launches > 6 * 27
+    assert (gpu.model.graph_captures, gpu.model.graph_replays) == (1, 5)
+    assert K1.launches == 2 * 8 and K2.launches > 2 * 27
     cpu = supercell.run(device="cpu", **kw)
     assert len(gpu.records) == len(cpu.records) == 3
     assert gpu.timing["ms_per_step"] > 0.0 and not gpu.full
